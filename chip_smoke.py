@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``vbr_tpu_torch/csrc`` (into
+``build/kernels``), then at the production rig size (128³ grid, 4 cameras
+of 486×644, synthetic rig and a seeded 50-mixture background model):
+
+  1. prints the card (``nvidia-smi`` name and power limit);
+  2. builds the kernels and prints the build time and ptxas usage;
+  3. K1 (blocked carve) against its plain PyTorch version on the card:
+     outputs bit-equal, times, active fraction and bound;
+  4. K2 (combined-phase labelling) against its plain version on the raw
+     masks of the main-path frame: labels bit-equal, iterations, times;
+  5. the main path, ``VisualHull.process_frame_fast``, on the card and on
+     the CPU: occupancy and colours bit-equal; the launch counters of K1
+     and K2 advance;
+  6. ``VisualHull.stream`` over 16 frames of a moving sphere: per-frame
+     times, launches per kernel;
+  7. a frame whose speckle overflows the device component table: the
+     overflow bit is set and the exact host redo matches the CPU run;
+  8. a ``torch.profiler`` trace of the main path: device time by kernel
+     and the device's idle share.
+
+It prints one JSON line of per-kernel numbers, the card line, and as its
+last line ``{"ok": true, "device": {...}}``.  Any failed check exits
+non-zero without that line; so does a machine without CUDA.  It imports
+nothing of JAX or of the ``vbr_tpu`` package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 1234
+STREAM_FRAMES = 16
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+K2_OPS_PER_PIXEL_ITER = 17  # 4 diag compare+min, 4 scans × (compare+min), 1 change test
+
+
+class Failed(Exception):
+    pass
+
+
+def expect(cond, what):
+    if not cond:
+        raise Failed(what)
+    print(f"  ok: {what}", flush=True)
+
+
+def mog_state(rng, bg_hsv, torch, K=50, n_slots=3):
+    """A frozen 50-mixture MOG state whose first slots sit near the
+    background HSV (weights from a Dirichlet, so bg_ratio 0.9 gives a
+    small prefix Ke)."""
+    from vbr_tpu_torch.ops.gmm import MOGState
+
+    H, W = bg_hsv.shape[:2]
+    w = np.zeros((H, W, K), np.float32)
+    w[..., :n_slots] = rng.dirichlet([6.0, 3.0, 1.0][:n_slots], size=(H, W))
+    mean = np.zeros((H, W, K, 3), np.float32)
+    mean[..., :n_slots, :] = (bg_hsv[:, :, None, :].astype(np.float32)
+                              + rng.normal(0, 3, (H, W, n_slots, 3)))
+    var = np.zeros((H, W, K), np.float32)
+    var[..., :n_slots] = rng.uniform(100.0, 200.0, (H, W, n_slots))
+    return MOGState(weight=torch.from_numpy(w), mean=torch.from_numpy(mean),
+                    var=torch.from_numpy(var),
+                    nframes=torch.tensor(134, dtype=torch.int32))
+
+
+def subject_texture(H, W):
+    """The subject's BGR texture: dark (V < 24), so no background pixel of
+    the synthetic rig (V >= 60) is within the model's match distance."""
+    yy, xx = np.mgrid[:H, :W]
+    return np.stack([xx % 24, yy % 24, np.zeros_like(xx)], -1).astype(np.uint8)
+
+
+def paint_frame(rng, cams, bg, center, speckle=200, holes=4):
+    """Background + the sphere's silhouettes in the subject texture, plus
+    seeded speckle (small fg components) and holes (small bg ones)."""
+    from vbr_tpu_torch.utils.synthetic import sphere_silhouette_mask
+
+    H, W = bg.shape[1:3]
+    tex = subject_texture(H, W)
+    fr = bg.copy()
+    for c, cp in enumerate(cams):
+        sil = sphere_silhouette_mask(cp, np.asarray(center), 500.0,
+                                     (H, W)) > 0
+        fr[c][sil] = tex[sil]
+        ys = rng.integers(0, H, speckle)
+        xs = rng.integers(0, W, speckle)
+        fr[c, ys, xs] = tex[ys, xs]
+        sy, sx = np.nonzero(sil)
+        for i in rng.integers(0, len(sy), holes):
+            fr[c, sy[i]:sy[i] + 3, sx[i]:sx[i] + 3] = bg[
+                c, sy[i]:sy[i] + 3, sx[i]:sx[i] + 3]
+    return fr
+
+
+def timed_ms(fn, torch, dev, reps=20, flush=None):
+    """Median ms of ``fn`` over ``reps`` calls (CUDA events on the card,
+    the host clock on the CPU), L2 flushed before each call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        if dev.type == "cuda":
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bound(n_bytes, n_ops):
+    """(least ms the card could take, "bytes" | "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_abs_err(pairs):
+    return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+
+
+def run(device, image_hw=(486, 644), grid=None, focal=490.0,
+        mask_params=None):
+    """All phases on ``device`` for a rig of ``image_hw`` images, a
+    ``grid`` (default: the production 128³) and cameras of focal length
+    ``focal``; returns the per-kernel report."""
+    import torch
+
+    from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
+    from vbr_tpu_torch.ops import carve_blocked as cb
+    from vbr_tpu_torch.ops import ccl_label
+    from vbr_tpu_torch.ops._cuda import build_kernels
+    from vbr_tpu_torch.ops.color import bgr_to_hsv_u8
+    from vbr_tpu_torch.pipelines import background
+    from vbr_tpu_torch.utils.config import (
+        DEFAULT_MASK_PARAMS, GridConfig, MOGParams, RigConfig)
+    from vbr_tpu_torch.utils.synthetic import synthetic_cameras, synthetic_rig
+
+    dev = torch.device(device)
+    grid = grid or GridConfig()
+    H, W = image_hw
+    kernels = (cb.K1, ccl_label.K2)
+
+    print("[2] build", flush=True)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        build_kernels(kernels)
+        print(f"  kernels built in {time.perf_counter() - t0:.2f} s "
+              "(one nvcc per source, in parallel)")
+        for k in kernels:
+            usage = [ln.strip() for ln in k.build_log.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            print(f"  {k.source.name}: {' | '.join(usage) or 'cached'}")
+
+    # -- rig, model, frames ---------------------------------------------
+    rng = np.random.default_rng(SEED)
+    cams = synthetic_cameras(4, image_hw=image_hw, f=focal)
+    bg = synthetic_rig(image_hw=image_hw)[2]
+    bg_hsv = bgr_to_hsv_u8(torch.from_numpy(bg)).numpy()
+    states = [mog_state(rng, bg_hsv[c], torch) for c in range(len(cams))]
+    rig = RigConfig(image_height=H, image_width=W)
+
+    def model_on(d):
+        m = VisualHull(cams, grid, rig, mask_params or DEFAULT_MASK_PARAMS,
+                       device=d)
+        m.bg_states = states
+        m.mog_params = [MOGParams()] * len(cams)
+        m._ensure_fast_state()
+        m._ensure_btab()
+        return m
+
+    t0 = time.perf_counter()
+    model = model_on(dev)
+    print(f"  model set-up (f64 tables, MOG compression): "
+          f"{time.perf_counter() - t0:.2f} s; Ke = "
+          f"{model._stacked_fz.thr.shape[-1]}")
+    center0 = np.array([100.0, -50.0, -700.0])
+    frame0 = paint_frame(rng, cams, bg, center0)
+    frame0_d = torch.from_numpy(frame0).to(dev)
+    btab = model._btab
+    flush = (torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+             if dev.type == "cuda" else None)
+
+    # stage inputs of the two kernels on the main-path frame
+    raw = background.raw_masks_batched_fz(model._stacked_fz, frame0_d,
+                                          model.mask_params)
+    masks = model.masks(frame0_d)
+    Hp, Wp = -(-H // 8) * 8, -(-W // 128) * 128
+    phase = torch.zeros((len(cams), Hp, Wp), dtype=torch.int32, device=dev)
+    phase[:, :H, :W] = (raw > 0).to(torch.int32)
+
+    # -- [3] K1 ----------------------------------------------------------
+    print("[3] K1 carve vs its plain version", flush=True)
+    vt = rig.views_threshold
+    active, full = cb.block_activity(masks, vt, btab.allv, btab.ry, btab.rx)
+    k1_args = (btab.pk, btab.lcc, active, full, masks,
+               frame0_d[btab.color_camera].contiguous())
+    k1_kw = dict(color_camera=btab.color_camera, views_threshold=vt)
+    got = cb.carve_blocked_kernel(*k1_args, **k1_kw)
+    want = cb.carve_blocked_plain(*k1_args, **k1_kw)
+    sync(torch, dev)
+    k1_err = max_abs_err(zip(got, want))
+    expect(k1_err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
+           "K1 occupancy and colours bit-equal to the plain version")
+    k1_ms = timed_ms(lambda: cb.carve_blocked_kernel(*k1_args, **k1_kw),
+                     torch, dev, flush=flush)
+    k1_plain_ms = timed_ms(lambda: cb.carve_blocked_plain(*k1_args, **k1_kw),
+                           torch, dev, flush=flush)
+    nblk, C = btab.nsuper * btab.nsub, btab.num_cameras
+    act, ful = active.bool(), full.bool()
+    n_compute = int((act & ~ful).sum())
+    n_full = int(ful.sum())
+    n_occ = int(got[0].sum())
+    k1_bytes = (8 * nblk  # active + full flags
+                + n_compute * C * cb.BV * 4  # pk of computed blocks
+                + n_full * cb.BV * 4  # colour-camera pk of full blocks
+                + n_occ * 4  # lcc of occupied voxels
+                + masks.numel() + H * W * 3  # masks, colour frame
+                + nblk * cb.BV * 4)  # occ + 3 colour bytes per voxel
+    k1_ops = n_compute * cb.BV * C * 8  # decode, compare, add per view
+    k1_bound, k1_bound_by = bound(k1_bytes, k1_ops)
+    print(f"  active {float(act.float().mean()):.4f} of {nblk} sub-blocks, "
+          f"full {n_full}, occupied voxels {n_occ}")
+    print(f"  K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
+          f"{k1_bound:.5f} ms ({k1_bound_by}: {k1_bytes} B, {k1_ops} ops)")
+
+    # -- [4] K2 ----------------------------------------------------------
+    print("[4] K2 combined-phase labelling vs its plain version", flush=True)
+    labels, iters = ccl_label.label_components_combined(phase)
+    labels_p, iters_p = ccl_label.label_components_combined_plain(phase)
+    sync(torch, dev)
+    k2_err = max_abs_err([(labels, labels_p), (iters, iters_p)])
+    expect(k2_err == 0 and torch.equal(labels, labels_p)
+           and torch.equal(iters, iters_p),
+           f"K2 labels bit-equal at {tuple(phase.shape)}, iterations to "
+           f"fixpoint {iters.tolist()}")
+    k2_ms = timed_ms(lambda: ccl_label.label_components_combined(phase),
+                     torch, dev, flush=flush)
+    k2_plain_ms = timed_ms(
+        lambda: ccl_label.label_components_combined_plain(phase), torch, dev,
+        flush=flush)
+    k2_bytes = 2 * phase.numel() * 4  # phase in, labels out
+    k2_ops = K2_OPS_PER_PIXEL_ITER * Hp * Wp * int(iters.sum())
+    k2_bound, k2_bound_by = bound(k2_bytes, k2_ops)
+    print(f"  K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound:.5f} ms ({k2_bound_by}: {k2_bytes} B, {k2_ops} ops)")
+
+    # -- [5] main path on the card and on the CPU -------------------------
+    print("[5] main path: process_frame_fast, card vs CPU", flush=True)
+    for k in kernels:
+        k.launches = 0
+    occ, col = model.process_frame_fast(frame0)
+    sync(torch, dev)
+    counts5 = [k.launches for k in kernels]
+    expect(all(n >= 1 for n in counts5) or dev.type == "cpu",
+           f"launch counters advanced on the main path: K1 {counts5[0]}, "
+           f"K2 {counts5[1]}")
+    t0 = time.perf_counter()
+    model_cpu = model_on("cpu")
+    occ_c, col_c = model_cpu.process_frame_fast(frame0)
+    print(f"  CPU run (plain versions): {time.perf_counter() - t0:.1f} s")
+    expect(occ.shape == (grid.num_voxels,) and col.shape == (grid.num_voxels, 3)
+           and torch.equal(occ.cpu(), occ_c) and torch.equal(col.cpu(), col_c),
+           f"occupancy and colours bit-equal card vs CPU "
+           f"({int(occ_c.sum())} occupied voxels)")
+    expect(0 < int(occ_c.sum()) < grid.num_voxels, "non-degenerate hull")
+
+    def step():
+        model.process_frame_fast(frame0)
+        sync(torch, dev)
+
+    step_ms = timed_ms(step, torch, dev, reps=10)
+    print(f"  process_frame_fast {step_ms:.3f} ms/frame (median of 10)")
+
+    # -- [6] stream ------------------------------------------------------
+    print(f"[6] stream over {STREAM_FRAMES} frames", flush=True)
+    seq = [paint_frame(rng, cams, bg, center0 + [12.0 * i, -6.0 * i, 0.0])
+           for i in range(STREAM_FRAMES)]
+    list(model.stream(iter(seq[:2])))  # warm-up
+    sync(torch, dev)
+    for k in kernels:
+        k.launches = 0
+    stamps = [time.perf_counter()]
+    outs = []
+    for out in model.stream(iter(seq)):
+        outs.append(out)
+        stamps.append(time.perf_counter())
+    sync(torch, dev)
+    launches = [k.launches for k in kernels]
+    per_frame = np.diff(stamps) * 1e3
+    stream_ms = (stamps[-1] - stamps[0]) * 1e3 / STREAM_FRAMES
+    expect(len(outs) == STREAM_FRAMES and all(n >= STREAM_FRAMES
+                                              for n in launches)
+           or dev.type == "cpu",
+           f"stream yielded {len(outs)} frames; launches K1 {launches[0]}, "
+           f"K2 {launches[1]}")
+    ref0 = model.process_frame_fast(seq[0], layout="blocked")
+    expect(all(torch.equal(a, b) for a, b in zip(outs[0], ref0)),
+           "stream frame 0 equals process_frame_fast(layout='blocked')")
+    print(f"  stream {stream_ms:.3f} ms/frame (mean); per frame "
+          f"{np.round(per_frame, 3).tolist()}")
+
+    # -- [7] overflow ----------------------------------------------------
+    print("[7] overflow frame: exact host redo", flush=True)
+    fo = paint_frame(rng, cams, bg, center0, speckle=0)
+    fo[:, ::3, ::3] = subject_texture(H, W)[::3, ::3]  # components > kf
+    _, _, ovf = _full_step(
+        model._stacked_fz, torch.from_numpy(fo).to(dev), btab,
+        mask_params=model.mask_params, use_hsv=True,
+        fig_thresholds=model._fig_thresholds,
+        inner_thresholds=model._inner_thresholds, views_threshold=vt,
+        layout="canonical")
+    expect(bool(ovf.any()), f"overflow bits set: {ovf.tolist()}")
+    occ_o, col_o = model.process_frame_fast(fo)
+    occ_oc, col_oc = model_cpu.process_frame_fast(fo)
+    expect(torch.equal(occ_o.cpu(), occ_oc) and torch.equal(col_o.cpu(), col_oc),
+           "overflowed frame redone exactly, card vs CPU")
+
+    profile = profile_step(torch, step, step_ms) if dev.type == "cuda" \
+        else None
+
+    def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n):
+        return {"name": name, "route": "cuda",
+                "source": f"vbr_tpu_torch/csrc/{k.source.name}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    return {
+        "kernels": [
+            row(cb.K1, "K1 carve_blocked", "vbr_tpu/ops/carve_pallas.py:673",
+                k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by,
+                launches[0]),
+            row(ccl_label.K2, "K2 ccl_combined",
+                "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
+                k2_bound, k2_bound_by, launches[1]),
+        ],
+        "main_path": {"process_frame_fast_ms": step_ms,
+                      "stream_ms_per_frame": stream_ms,
+                      "stream_frames": STREAM_FRAMES,
+                      "profile": profile},
+    }
+
+
+def profile_step(torch, step, step_ms, frames=4, top=15):
+    """[8] ``torch.profiler`` over a few main-path steps: device time per
+    frame by kernel, and the device's idle share of the unprofiled step
+    time ``step_ms`` (the profiler's own host cost is left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    print(f"[8] profile of {frames} process_frame_fast steps", flush=True)
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            step()
+    rows = []
+    for ev in prof.key_averages():  # device-side events only (no op rows)
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if str(ev.device_type).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us / 1e3 / frames, ev.count // frames, ev.key))
+    if not rows:
+        print("  the profiler saw no device time")
+        return None
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"  device busy {busy_ms:.3f} ms/frame of {step_ms:.3f} ms "
+          f"(unprofiled), idle share {1 - busy_ms / step_ms:.3f}; "
+          f"{sum(r[1] for r in rows)} device ops/frame")
+    for ms, n, name in rows[:top]:
+        print(f"  {ms:9.4f} ms/frame  x{n:<4d} {name[:90]}")
+    return {"device_busy_ms_per_frame": busy_ms,
+            "idle_share": 1 - busy_ms / step_ms,
+            "device_ops_per_frame": sum(r[1] for r in rows),
+            "top": [{"name": name[:90], "ms_per_frame": ms, "calls": n}
+                    for ms, n, name in rows[:top]]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    try:
+        import vbr_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the vbr_tpu_torch package is missing ({e}); run "
+              "from the repository root", file=sys.stderr)
+        return 2
+    print("[1] device", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        print(f"chip_smoke: nvidia-smi failed: {smi.stderr}", file=sys.stderr)
+        return 1
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    try:
+        report = run("cuda")
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"  all phases in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(report))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+"""VisualHull — the live per-frame visual-hull model.
+
+Counterpart of ``vbr_tpu/models/visual_hull.py::VisualHull`` on its main
+path: a calibrated rig + frozen per-camera background models + carve
+tables, with the per-frame step
+
+    frames (C,H,W,3) u8 → HSV → compressed frozen MOG apply →
+    pre-morphology → CCL cleanup (kernel K2) → post-morphology →
+    blocked carve (kernel K1) → occupancy + colours
+
+``process_frame_fast`` and ``stream`` run that step (``_full_step``, the
+counterpart of ``_full_step_pallas`` with ``ingest="bgr"``) and redo a
+frame exactly through the host cleanup when a camera overflows the
+device component tables.  ``process_frame`` is the plain f64 table path.
+Outputs are torch tensors on the model's device.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from vbr_tpu_torch.ops import carve as carve_ops
+from vbr_tpu_torch.ops import carve_blocked, ccl
+from vbr_tpu_torch.ops.gmm import MOGState
+from vbr_tpu_torch.pipelines import background
+from vbr_tpu_torch.utils import artifacts
+from vbr_tpu_torch.utils.config import (
+    DEFAULT_MASK_PARAMS,
+    CameraParams,
+    GridConfig,
+    MaskParams,
+    MOGParams,
+    RigConfig,
+)
+from vbr_tpu_torch.utils.device import resolve_device
+
+
+class VisualHull:
+    """Multi-camera visual-hull reconstruction model."""
+
+    def __init__(
+        self,
+        cameras: Sequence[CameraParams],
+        grid: GridConfig = GridConfig(),
+        rig: RigConfig = RigConfig(),
+        mask_params: Sequence[MaskParams] = DEFAULT_MASK_PARAMS,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cameras = list(cameras)
+        self.grid = grid
+        self.rig = rig
+        self.mask_params = list(mask_params)
+        self.bg_states: List[MOGState] = []
+        self.mog_params: List[MOGParams] = []
+        self._tables = None  # f64 table path, built on first process_frame
+        self._btab = None  # blocked carve tables, built on first fast step
+        self._stacked_fz = None
+
+    @property
+    def image_hw(self):
+        return (self.rig.image_height, self.rig.image_width)
+
+    @property
+    def tables(self) -> carve_ops.ProjectionTables:
+        if self._tables is None:
+            self._tables = carve_ops.build_projection_tables(
+                self.cameras, self.grid, self.image_hw, self.device)
+        return self._tables
+
+    def _frames(self, frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor):
+            return frames.to(self.device, torch.uint8)
+        return torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(
+            self.device)
+
+    def _ensure_fast_state(self):
+        if self._stacked_fz is None:
+            self._fig_thresholds = tuple(
+                float(p.figure_threshold) for p in self.mask_params)
+            self._inner_thresholds = tuple(
+                float(p.inner_threshold) for p in self.mask_params)
+            p0 = self.mog_params[0]
+            fields = ("bg_ratio", "use_hsv", "match_sigma")
+            for p in self.mog_params[1:]:
+                if any(getattr(p, f) != getattr(p0, f) for f in fields):
+                    raise ValueError(
+                        "the batched mask stage needs uniform MOG apply "
+                        "params (bg_ratio, use_hsv, match_sigma) across "
+                        f"cameras; got {[(q.bg_ratio, q.use_hsv, q.match_sigma) for q in self.mog_params]}"
+                    )
+            self._stacked_fz = background.stack_frozen(
+                self.bg_states, p0, self.device)
+
+    def _ensure_btab(self):
+        if self._btab is None:
+            sub = (8, 8, 8)
+            sup = tuple(max(1, min(p, n // s))
+                        for n, s, p in zip(self.grid.shape, sub, (2, 2, 4)))
+            self._btab = carve_blocked.build_block_tables(
+                self.cameras, self.grid, self.image_hw, sub=sub, sup=sup,
+                color_camera=self.rig.color_camera, device=self.device,
+            )
+
+    # -- per-frame step ---------------------------------------------------
+
+    def masks(self, frames) -> torch.Tensor:
+        """(C, H, W) u8 cleaned masks: the device cleanup, with each
+        overflowed camera redone exactly by the host cleanup."""
+        self._ensure_fast_state()
+        frames_d = self._frames(frames)
+        raw = background.raw_masks_batched_fz(
+            self._stacked_fz, frames_d, self.mask_params,
+            self.mog_params[0].use_hsv)
+        cleaned, ovf = ccl.clean_masks_batched(
+            raw, self._fig_thresholds, self._inner_thresholds)
+        masks = background.finalize_masks_batched(cleaned, self.mask_params)
+        ovf = ovf.cpu().numpy()
+        if ovf.any():
+            raw_h = raw.cpu().numpy()
+            for c in np.flatnonzero(ovf):
+                p = self.mask_params[c]
+                cleaned_c = ccl.clean_mask_host(
+                    raw_h[c], p.figure_threshold, p.inner_threshold)
+                masks[c] = background.finalize_masks_batched(
+                    torch.from_numpy(cleaned_c)[None].to(self.device), (p,))[0]
+        return masks
+
+    def process_frame(self, frames, masks=None):
+        """Plain table-path step → (occupancy (N,) bool, colors (N, 3) u8)."""
+        frames_d = self._frames(frames)
+        if masks is None:
+            masks = self.masks(frames_d)
+        return carve_ops.carve_from_tables(
+            masks, frames_d, self.tables.valid, self.tables.lin_idx,
+            views_threshold=self.rig.views_threshold,
+            color_camera=self.rig.color_camera,
+        )
+
+    def _dispatch(self, frames_d, layout):
+        return _full_step(
+            self._stacked_fz, frames_d, self._btab,
+            mask_params=self.mask_params,
+            use_hsv=self.mog_params[0].use_hsv,
+            fig_thresholds=self._fig_thresholds,
+            inner_thresholds=self._inner_thresholds,
+            views_threshold=self.rig.views_threshold, layout=layout,
+        )
+
+    def _redo(self, frames_d, layout):
+        """Exact redo of an overflowed frame via the host cleanup."""
+        return carve_blocked.carve_blocked(
+            self.masks(frames_d), frames_d[self.rig.color_camera], self._btab,
+            views_threshold=self.rig.views_threshold, layout=layout,
+        )
+
+    def process_frame_fast(self, frames, layout: str = "canonical"):
+        """The fused per-frame step → (occ, colors) in ``layout`` order
+        (see ``carve_blocked.carve_blocked``).  Needs grid dims divisible
+        by 8·sup (``ValueError`` otherwise; use :meth:`process_frame`)."""
+        self._ensure_fast_state()
+        self._ensure_btab()
+        frames_d = self._frames(frames)
+        occ, col, ovf = self._dispatch(frames_d, layout)
+        if bool(ovf.any()):
+            return self._redo(frames_d, layout)
+        return occ, col
+
+    def stream(self, frames_iter, layout: str = "blocked"):
+        """Streaming reconstruction: frame N+1's step is queued on the
+        device before frame N's overflow bits are read, so the host's
+        decode and redo checks overlap device work.  Yields (occ, colors)
+        per frame in ``layout`` order."""
+        self._ensure_fast_state()
+        self._ensure_btab()
+        pending = None
+        for frames in frames_iter:
+            frames_d = self._frames(frames)
+            cur = (*self._dispatch(frames_d, layout), frames_d)
+            if pending is not None:
+                yield self._resolve(pending, layout)
+            pending = cur
+        if pending is not None:
+            yield self._resolve(pending, layout)
+
+    def _resolve(self, entry, layout):
+        occ, col, ovf, frames_d = entry
+        if bool(ovf.any()):
+            return self._redo(frames_d, layout)
+        return occ, col
+
+    # -- checkpointing ----------------------------------------------------
+
+    def save_background_models(self, out_dir: str):
+        for c, st in enumerate(self.bg_states):
+            artifacts.save_mog_state(
+                os.path.join(out_dir, f"mog_cam{c + 1}.npz"), st)
+
+    def load_background_models(self, out_dir: str) -> bool:
+        """Load ``mog_cam{1..C}.npz`` (as written by either package);
+        False when any is missing."""
+        states = []
+        for c in range(self.rig.num_cameras):
+            st = artifacts.load_mog_state(
+                os.path.join(out_dir, f"mog_cam{c + 1}.npz"))
+            if st is None:
+                return False
+            states.append(st)
+        self.bg_states = states
+        self.mog_params = [MOGParams() for _ in states]
+        self._stacked_fz = None
+        return True
+
+
+def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
+               fig_thresholds, inner_thresholds, views_threshold, layout):
+    """The per-frame pipeline: HSV → compressed frozen MOG apply →
+    pre-morphology → CCL cleanup → post-morphology → blocked carve.
+    Returns (occ, colors, overflow (C,) bool)."""
+    raw = background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
+                                          use_hsv)
+    cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
+                                           inner_thresholds)
+    masks = background.finalize_masks_batched(cleaned, mask_params)
+    occ, col = carve_blocked.carve_blocked(
+        masks, frames[btab.color_camera], btab,
+        views_threshold=views_threshold, layout=layout,
+    )
+    return occ, col, ovf

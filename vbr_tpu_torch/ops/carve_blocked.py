@@ -1,0 +1,361 @@
+"""Blocked visual-hull carve (kernel K1) and its static tables.
+
+Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
+
+  * host side — ``BlockTables``, ``_blocked_permutation``,
+    ``_check_block_geometry``, ``build_block_tables`` (the pure-f64 host
+    build) and ``tables_static_tuple``;
+  * device side — ``block_activity`` (per-sub-block active/full flags from
+    8×8 fine cells and the bilinear row/column span form, in float32
+    matmuls whose 0/1 sums are exact), the carve kernel, and the
+    blocked/canonical output handling of ``carve_blocked``;
+  * host helpers for the blocked layout — ``canonicalize_host`` and
+    ``compact_voxels_blocked``.
+
+The voxel grid is tiled into 8³ sub-blocks (512 voxels) grouped into
+superblocks; ``perm`` maps each (superblock, sub-block, voxel) slot to its
+canonical voxel index.  On a CUDA tensor the carve runs the hand-written
+kernel ``csrc/carve_blocked.cu``; on a CPU tensor its plain PyTorch
+version.  Both emit final u8 occupancy and u8 BGR colours.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vbr_tpu_torch.ops import camera as cam_ops
+from vbr_tpu_torch.ops._cuda import CudaKernel, check, ptr
+from vbr_tpu_torch.ops.carve import to_host, viewer_arrays
+from vbr_tpu_torch.utils.config import CameraParams, GridConfig
+
+BV = 512  # voxels per sub-block (8³)
+WORD_BITS = 8  # columns per packed word in the geometry word ``pk``
+LANE = 128  # fine-cell span padding (kept from the JAX tables)
+FCELL = 8  # activity/full-test fine-cell size in pixels
+INVALID_ROW = 1023  # ``pk`` row of a projection outside the image
+
+K1 = CudaKernel(
+    "carve_blocked.cu", "vbr_carve_blocked",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTables:
+    """Static per-rig tables of the blocked carve (see the JAX class)."""
+
+    grid_shape: Tuple[int, int, int]
+    sub_shape: Tuple[int, int, int]
+    sup_shape: Tuple[int, int, int]  # in sub-blocks
+    nblocks: Tuple[int, int, int]  # superblock grid (gx, gy, gz)
+    nsuper: int
+    nsub: int
+    num_cameras: int
+    image_hw: Tuple[int, int]
+    Hp: int
+    n_words: int
+    Wc: int
+    WH: int
+    WC: int
+    color_camera: int
+    # packed geometry, one i32 per (voxel, camera): row<<10 | word<<3 | bit
+    pk: torch.Tensor = None  # (nsuper, nsub, C, BV) i32
+    lcc: torch.Tensor = None  # (nsuper, nsub, BV) i32 colour col, -1 invalid
+    vorig: torch.Tensor = None  # (nsuper, nsub, C) i32 row-window origin
+    uorig: torch.Tensor = None  # (nsuper, nsub, 1) i32 colour col origin
+    allv: torch.Tensor = None  # (nsuper, nsub) i32 all projections valid
+    ry: torch.Tensor = None  # (C, nsuper*nsub, hf_pad) f32 row spans
+    rx: torch.Tensor = None  # (C, nsuper*nsub, wf_pad) f32 col spans
+    n_fcells_hw: Tuple[int, int] = (0, 0)
+    perm: np.ndarray = dataclasses.field(default=None, compare=False,
+                                         hash=False)
+
+
+def _blocked_permutation(grid_shape, sub, sup):
+    """Canonical (ix, iy, iz) C-order → (superblock, sub-block, voxel)."""
+    nx, ny, nz = grid_shape
+    sbx, sby, sbz = sub
+    spx, spy, spz = sup
+    gx, gy, gz = nx // (sbx * spx), ny // (sby * spy), nz // (sbz * spz)
+    idx = np.arange(nx * ny * nz).reshape(nx, ny, nz)
+    idx = idx.reshape(gx, spx, sbx, gy, spy, sby, gz, spz, sbz)
+    idx = idx.transpose(0, 3, 6, 1, 4, 7, 2, 5, 8)
+    perm = idx.reshape(gx * gy * gz, spx * spy * spz, sbx * sby * sbz)
+    return perm, (gx, gy, gz)
+
+
+def _check_block_geometry(grid, sub, sup, image_hw):
+    H, W = image_hw
+    for n, s, p in zip(grid.shape, sub, sup):
+        if n % (s * p) != 0:
+            raise ValueError(f"grid dim {n} not divisible by {s}*{p}")
+    if sub[0] * sub[1] * sub[2] != BV:
+        raise ValueError("sub-block must contain exactly 512 voxels")
+    if W // WORD_BITS >= 128:
+        raise ValueError("word index must fit 7 bits (image width < 1024)")
+    if H >= INVALID_ROW:
+        raise ValueError("image height must be < 1023 (row 1023 is the "
+                         "packed-geometry invalid sentinel)")
+
+
+def build_block_tables(
+    cameras: Sequence[CameraParams],
+    grid: GridConfig,
+    image_hw: Tuple[int, int],
+    sub: Tuple[int, int, int] = (8, 8, 8),
+    sup: Tuple[int, int, int] = (2, 2, 4),
+    color_camera: int = 1,
+    device="cpu",
+) -> BlockTables:
+    """All static carve tables from the float64 host projection (the
+    exactness oracle), moved to ``device``."""
+    H, W = image_hw
+    C = len(cameras)
+    _check_block_geometry(grid, sub, sup, image_hw)
+
+    perm, nblocks = _blocked_permutation(grid.shape, sub, sup)
+    nsuper, nsub, _ = perm.shape
+    n_words = _ceil_to(W, WORD_BITS) // WORD_BITS
+    pk = np.zeros((nsuper, nsub, C, BV), dtype=np.int32)
+    vorig = np.zeros((nsuper, nsub, C), dtype=np.int32)
+    allv = np.ones((nsuper, nsub), dtype=bool)
+    nblk = nsuper * nsub
+    hf = -(-H // FCELL)
+    wf = -(-W // FCELL)
+    hf_p = _ceil_to(hf, LANE)
+    wf_p = _ceil_to(wf, LANE)
+    ry = np.zeros((C, nblk, hf_p), dtype=np.int8)
+    rx = np.zeros((C, nblk, wf_p), dtype=np.int8)
+
+    pts = grid.voxel_points()
+    need_wh = 8
+    for c, cp in enumerate(cameras):
+        uv = cam_ops.project_points(pts, cp.rvec, cp.tvec, cp.K, cp.dist)
+        x, y = uv[:, 0], uv[:, 1]
+        valid = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+        iy_b = np.where(valid, np.trunc(y), 0).astype(np.int32)[perm]
+        ix_b = np.where(valid, np.trunc(x), 0).astype(np.int32)[perm]
+        valid_b = valid[perm]
+        if c == color_camera:
+            ix_color, valid_color = ix_b, valid_b
+        row_f = np.where(valid_b, iy_b, INVALID_ROW)
+        pk[:, :, c, :] = ((row_f << 10) | ((ix_b // WORD_BITS) << 3)
+                          | (ix_b % WORD_BITS)).astype(np.int32)
+
+        allv &= valid_b.all(axis=2)
+        any_v = valid_b.any(axis=2)
+        ymin = np.where(any_v, np.where(valid_b, iy_b, 10**6).min(axis=2), 0)
+        ymax = np.where(any_v, np.where(valid_b, iy_b, -1).max(axis=2), 0)
+        v0 = (ymin // 8) * 8
+        need_wh = max(need_wh, int((ymax - v0).max()) + 1)
+        vorig[:, :, c] = v0
+
+        # footprint bbox → fine row/column span indicators
+        xmin_c = np.where(any_v, np.where(valid_b, ix_b, 10**6).min(axis=2), 0)
+        xmax_c = np.where(any_v, np.where(valid_b, ix_b, -1).max(axis=2), 0)
+        bidx = np.flatnonzero(any_v.ravel())
+        y0F, y1F = (ymin // FCELL).ravel(), (ymax // FCELL).ravel()
+        x0F, x1F = (xmin_c // FCELL).ravel(), (xmax_c // FCELL).ravel()
+        dy = np.zeros((nblk, hf_p + 1), np.int8)
+        np.add.at(dy, (bidx, y0F[bidx]), 1)
+        np.add.at(dy, (bidx, y1F[bidx] + 1), -1)
+        ry[c] = np.cumsum(dy, axis=1, dtype=np.int8)[:, :hf_p]
+        dx = np.zeros((nblk, wf_p + 1), np.int8)
+        np.add.at(dx, (bidx, x0F[bidx]), 1)
+        np.add.at(dx, (bidx, x1F[bidx] + 1), -1)
+        rx[c] = np.cumsum(dx, axis=1, dtype=np.int8)[:, :wf_p]
+
+    WH = _ceil_to(need_wh, 8)
+    Hp = _ceil_to(H, 8) + WH
+    any_c = valid_color.any(axis=2)
+    xmin = np.where(any_c, np.where(valid_color, ix_color, 10**6).min(axis=2), 0)
+    xmax = np.where(any_c, np.where(valid_color, ix_color, -1).max(axis=2), 0)
+    u0 = (xmin // 64) * 64
+    WC = _ceil_to(int((xmax - u0).max()) + 1, LANE)
+    Wc = _ceil_to(W, LANE) + WC
+    uorig = u0.astype(np.int32).reshape(nsuper, nsub, 1)
+    lcc = np.where(valid_color, ix_color, -1).astype(np.int32)
+
+    def dev(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return BlockTables(
+        grid_shape=grid.shape, sub_shape=tuple(sub), sup_shape=tuple(sup),
+        nblocks=nblocks, nsuper=nsuper, nsub=nsub, num_cameras=C,
+        image_hw=(H, W), Hp=Hp, n_words=n_words, Wc=Wc, WH=WH, WC=WC,
+        color_camera=color_camera,
+        pk=dev(pk), lcc=dev(lcc), vorig=dev(vorig), uorig=dev(uorig),
+        allv=dev(allv.astype(np.int32)),
+        ry=dev(ry, torch.float32), rx=dev(rx, torch.float32),
+        n_fcells_hw=(hf, wf), perm=perm,
+    )
+
+
+def tables_static_tuple(tables: BlockTables):
+    """Hashable static geometry (same fields and order as the JAX one)."""
+    return (
+        tables.num_cameras, tables.nsuper, tables.nsub, tables.WH,
+        tables.WC, tables.n_words, tables.color_camera, tables.sub_shape,
+        tables.sup_shape, tables.nblocks, tables.Hp, tables.Wc,
+    )
+
+
+def block_activity(masks, views_threshold, allv, ry, rx):
+    """(C, H, W) u8 masks → per-sub-block (active, full) i32 flags (nblk,).
+
+    active = 0 only when fewer than ``views_threshold`` cameras have any
+    foreground among the fine cells covering the block's projected bbox;
+    full = 1 only when every covering cell is entirely foreground in every
+    camera and every projection is valid (``allv``)."""
+    C, H, W = masks.shape
+    hf_p, wf_p = ry.shape[2], rx.shape[2]
+    fg = torch.zeros((C, hf_p * FCELL, wf_p * FCELL), dtype=torch.float32,
+                     device=masks.device)
+    fg[:, :H, :W] = (masks > 0).to(torch.float32)
+    cells = fg.reshape(C, hf_p, FCELL, wf_p, FCELL)
+    fmax = cells.amax(dim=(2, 4))
+    fmin = cells.amin(dim=(2, 4))
+
+    def bilinear(M):  # out[c, b] = Σ_i Σ_j ry[c,b,i]·M[c,i,j]·rx[c,b,j]
+        return (torch.bmm(ry, M) * rx).sum(dim=-1)
+
+    cam_any = (bilinear(fmax) > 0).to(torch.int32)
+    active = (cam_any.sum(dim=0) >= views_threshold).to(torch.int32)
+    cam_full = (bilinear(1.0 - fmin) == 0).to(torch.int32)
+    full = (cam_full.sum(dim=0) == C).to(torch.int32) * allv.reshape(-1)
+    return active, full
+
+
+def carve_blocked_kernel(pk, lcc, active, full, masks, image, *,
+                         color_camera: int, views_threshold: int):
+    """Kernel K1: blocked tables + flags + masks + colour frame →
+    (occ_b (nsuper, nsub, BV) u8 0/1, col_b (nsuper, nsub, 3, BV) u8 BGR).
+
+    CUDA tensors launch ``csrc/carve_blocked.cu``; CPU tensors run
+    :func:`carve_blocked_plain`."""
+    if pk.device.type == "cpu":
+        return carve_blocked_plain(pk, lcc, active, full, masks, image,
+                                   color_camera=color_camera,
+                                   views_threshold=views_threshold)
+    if pk.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pk.device}")
+    nsuper, nsub, C, _ = pk.shape
+    H, W = masks.shape[1:]
+    dev = pk.device
+    nblk = nsuper * nsub
+    check(pk, "pk", torch.int32, (nsuper, nsub, C, BV), dev)
+    check(lcc, "lcc", torch.int32, (nsuper, nsub, BV), dev)
+    check(active, "active", torch.int32, (nblk,), dev)
+    check(full, "full", torch.int32, (nblk,), dev)
+    check(masks, "masks", torch.uint8, (C, H, W), dev)
+    check(image, "image", torch.uint8, (H, W, 3), dev)
+    if not 0 <= color_camera < C:
+        raise ValueError(f"color_camera {color_camera} out of range")
+    occ = torch.empty((nsuper, nsub, BV), dtype=torch.uint8, device=dev)
+    col = torch.empty((nsuper, nsub, 3, BV), dtype=torch.uint8, device=dev)
+    K1.launch(ptr(pk), ptr(lcc), ptr(active), ptr(full), ptr(masks),
+              ptr(image), ptr(occ), ptr(col), nblk, C, H, W,
+              int(color_camera), int(views_threshold))
+    return occ, col
+
+
+def carve_blocked_plain(pk, lcc, active, full, masks, image, *,
+                        color_camera: int, views_threshold: int):
+    """Plain PyTorch version of K1 (any device; the wrapper uses it for
+    CPU tensors only)."""
+    nsuper, nsub, C, _ = pk.shape
+    H, W = masks.shape[1:]
+    row = pk >> 10
+    x = ((pk >> 3) & 127) * WORD_BITS + (pk & 7)
+    valid = row != INVALID_ROW
+    lin = torch.where(valid, row * W + x, 0).long()
+    fg = masks.reshape(C, -1) > 0
+    count = torch.zeros((nsuper, nsub, BV), dtype=torch.int32,
+                        device=pk.device)
+    for c in range(C):
+        count += (valid[:, :, c] & fg[c][lin[:, :, c]]).to(torch.int32)
+    act = active.reshape(nsuper, nsub, 1) > 0
+    is_full = full.reshape(nsuper, nsub, 1) > 0
+    count = torch.where(is_full, C, torch.where(act, count, 0))
+    occ = act & (count >= views_threshold)
+    row_c = row[:, :, color_camera]
+    ok = occ & (row_c != INVALID_ROW) & (lcc >= 0)
+    lin_c = torch.where(ok, row_c * W + lcc, 0).long()
+    col = image.reshape(-1, 3)[lin_c]  # (nsuper, nsub, BV, 3)
+    col = torch.where(ok[..., None], col, 0).to(torch.uint8)
+    return occ.to(torch.uint8), col.permute(0, 1, 3, 2).contiguous()
+
+
+def _blocked_to_canonical(x_blocked, sub, sup, nblocks):
+    """(nsuper, nsub·BV, *t) blocked → (N, *t) canonical C-order."""
+    gx, gy, gz = nblocks
+    spx, spy, spz = sup
+    sbx, sby, sbz = sub
+    trailing = tuple(x_blocked.shape[2:])
+    x = x_blocked.reshape((gx, gy, gz, spx, spy, spz, sbx, sby, sbz)
+                          + trailing)
+    fwd = (0, 3, 6, 1, 4, 7, 2, 5, 8)
+    inv = [fwd.index(k) for k in range(9)] + list(range(9, 9 + len(trailing)))
+    n = x_blocked.shape[0] * x_blocked.shape[1]
+    return x.permute(inv).reshape((n,) + trailing)
+
+
+def carve_blocked(masks: torch.Tensor, image: torch.Tensor,
+                  tables: BlockTables, *, views_threshold: int = 4,
+                  layout: str = "canonical"):
+    """Full-frame carve: (C, H, W) u8 masks + (H, W, 3) u8 BGR colour-camera
+    frame → occupancy and colours.
+
+    ``layout="canonical"``: (occ (N,) bool, colors (N, 3) u8) in
+    ``GridConfig.voxel_points()`` order.  ``layout="blocked"``: (occ_b
+    (nsuper, nsub, BV) u8, col_b (nsuper, nsub, 3, BV) u8), for
+    :func:`compact_voxels_blocked`.  Colours are 0 off the hull."""
+    if layout not in ("canonical", "blocked"):
+        raise ValueError(f"unknown layout {layout!r}")
+    active, full = block_activity(masks, views_threshold, tables.allv,
+                                  tables.ry, tables.rx)
+    occ_b, col_b = carve_blocked_kernel(
+        tables.pk, tables.lcc, active, full, masks.contiguous(),
+        image.contiguous(), color_camera=tables.color_camera,
+        views_threshold=views_threshold,
+    )
+    if layout == "blocked":
+        return occ_b, col_b
+    nsuper, nsub = tables.nsuper, tables.nsub
+    occ = _blocked_to_canonical(occ_b.reshape(nsuper, nsub * BV),
+                                tables.sub_shape, tables.sup_shape,
+                                tables.nblocks)
+    col_v = col_b.permute(0, 1, 3, 2).reshape(nsuper, nsub * BV, 3)
+    colors = _blocked_to_canonical(col_v, tables.sub_shape, tables.sup_shape,
+                                   tables.nblocks)
+    return occ.bool(), colors
+
+
+def canonicalize_host(x_blocked, tables: BlockTables) -> np.ndarray:
+    """Blocked (nsuper, nsub, BV[, t]) → canonical (N[, t]) on the host."""
+    x = to_host(x_blocked)
+    flat = x.reshape((tables.nsuper * tables.nsub * BV,) + x.shape[3:])
+    out = np.empty_like(flat)
+    out[tables.perm.ravel()] = flat
+    return out
+
+
+def compact_voxels_blocked(occ_blocked, colors_blocked, tables: BlockTables,
+                           grid: GridConfig, scaling_factor: float = 64.0):
+    """Viewer compaction straight from the blocked layout (rows in blocked
+    order): truncated positions with the (x, -z, y)/scale swap and RGB
+    colours in [0, 1], as float32 numpy."""
+    occ = to_host(occ_blocked).ravel().astype(bool)
+    col = np.moveaxis(to_host(colors_blocked), 2, 3).reshape(-1, 3)
+    pts = grid.voxel_points()[tables.perm.ravel()]
+    return viewer_arrays(pts[occ], col[occ], scaling_factor)

@@ -1,0 +1,108 @@
+"""Combined-phase connected-component labelling (kernel K2).
+
+Counterpart of ``vbr_tpu/ops/ccl_pallas.py::label_components_combined``:
+8-connected labels of BOTH phases of each padded binary image in one
+fixpoint, every pixel carrying the minimum padded linear index of its
+own-phase component, capped at ``max_iters`` iterations exactly like the
+TPU kernel.  On a CUDA tensor the hand-written kernel
+``csrc/ccl_combined.cu`` runs; on a CPU tensor the plain PyTorch version
+below (the same iteration, written with Hillis–Steele segmented scans).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vbr_tpu_torch.ops._cuda import CudaKernel, check, ptr
+
+BIG = 2**30
+_DIAGS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
+
+K2 = CudaKernel(
+    "ccl_combined.cu", "vbr_ccl_combined",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+
+
+def label_components_combined(phase: torch.Tensor, max_iters: int = 64):
+    """(B, Hp, Wp) 0/1 phase (Hp % 8 == 0, Wp % 128 == 0) →
+    (labels (B, Hp, Wp) i32, iterations run (B,) i32)."""
+    B, H, W = phase.shape
+    if H % 8 or W % 128:
+        raise ValueError("padded image dims must be multiples of (8, 128)")
+    phase = phase.to(torch.int32).contiguous()
+    if phase.device.type == "cpu":
+        return label_components_combined_plain(phase, max_iters)
+    if phase.device.type != "cuda":
+        raise ValueError(f"no kernel for device {phase.device}")
+    check(phase, "phase", torch.int32, (B, H, W), phase.device)
+    labels = torch.empty_like(phase)
+    scratch = torch.empty_like(phase)
+    iters = torch.empty(B, dtype=torch.int32, device=phase.device)
+    K2.launch(ptr(phase), ptr(labels), ptr(scratch), ptr(iters),
+              B, H, W, int(max_iters))
+    return labels, iters
+
+
+def _shift(x: torch.Tensor, d: int, dim: int, fill: int) -> torch.Tensor:
+    """out[i] = x[i - d] along ``dim``; vacated cells get ``fill``."""
+    n = x.shape[dim]
+    out = torch.full_like(x, fill)
+    if abs(d) >= n:
+        return out
+    if d > 0:
+        out.narrow(dim, d, n - d).copy_(x.narrow(dim, 0, n - d))
+    elif d < 0:
+        out.narrow(dim, 0, n + d).copy_(x.narrow(dim, -d, n + d))
+    else:
+        out.copy_(x)
+    return out
+
+
+def _seg_min_scan(v, reset, dim, reverse):
+    """Inclusive segmented running min along ``dim``; ``reset`` (0/1)
+    starts a new segment (Hillis–Steele over (min, reset) pairs)."""
+    r = reset
+    d = 1
+    while d < v.shape[dim]:
+        s = -d if reverse else d
+        vs = _shift(v, s, dim, BIG)
+        rs = _shift(r, s, dim, 1)
+        v = torch.where(r > 0, v, torch.minimum(v, vs))
+        r = torch.maximum(r, rs)
+        d *= 2
+    return v
+
+
+def label_components_combined_plain(phase: torch.Tensor, max_iters: int = 64):
+    """Plain PyTorch version of K2 (any device; the wrapper uses it for
+    CPU tensors only)."""
+    B, H, W = phase.shape
+    ph = phase.to(torch.int32)
+    lin = torch.arange(H * W, dtype=torch.int32, device=ph.device)
+    labels = lin.reshape(1, H, W).expand(B, H, W).contiguous()
+    ph_d = [_shift(_shift(ph, dy, 1, -1), dx, 2, -1) for dy, dx in _DIAGS]
+    resets = {
+        (dim, rev): (ph != _shift(ph, -1 if rev else 1, dim, -1)).to(torch.int32)
+        for dim in (1, 2) for rev in (False, True)
+    }
+    iters = torch.zeros(B, dtype=torch.int32, device=ph.device)
+    active = torch.ones(B, dtype=torch.bool, device=ph.device)
+    for _ in range(max_iters):
+        nm = labels
+        for phs, (dy, dx) in zip(ph_d, _DIAGS):
+            sh = _shift(_shift(labels, dy, 1, BIG), dx, 2, BIG)
+            nm = torch.minimum(nm, torch.where(phs == ph, sh, BIG))
+        l2 = nm
+        for dim in (2, 1):  # rows, then columns; forward, then reverse
+            for rev in (False, True):
+                l2 = _seg_min_scan(l2, resets[(dim, rev)], dim, rev)
+        changed = (l2 != labels).flatten(1).any(dim=1)
+        iters += active.to(torch.int32)
+        active &= changed
+        labels = l2  # a converged image is a fixpoint: l2 == labels there
+        if not bool(active.any()):
+            break
+    return labels, iters

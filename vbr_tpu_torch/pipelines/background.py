@@ -1,0 +1,63 @@
+"""Batched mask stages of the per-frame step (all cameras at once).
+
+Counterpart of ``vbr_tpu/pipelines/background.py``: ``stack_frozen``
+(per-camera states → one prefix-compressed stacked state),
+``raw_masks_batched_fz`` (HSV + compressed frozen apply + per-camera
+pre-morphology) and ``finalize_masks_batched`` (per-camera
+post-morphology + binarize).  The ROI and YUV ingest variants are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from vbr_tpu_torch.ops import color as color_ops
+from vbr_tpu_torch.ops import gmm, morphology
+from vbr_tpu_torch.utils.config import MOGParams
+
+
+def stack_frozen(states: Sequence[gmm.MOGState], params: MOGParams,
+                 device="cpu") -> gmm.FrozenMOGState:
+    """Per-camera MOG states → one (C, H, W, Ke) compressed state on
+    ``device``; all cameras share the largest prefix length."""
+    K = states[0].weight.shape[-1]
+    fulls = [gmm.compress_frozen(s, params, k_eff=K)[0] for s in states]
+    k_eff = max(max((int(f.bcount.max()) for f in fulls), default=1), 1)
+    return gmm.FrozenMOGState(
+        mean=torch.stack([f.mean[..., :k_eff, :] for f in fulls]).to(device),
+        thr=torch.stack([f.thr[..., :k_eff] for f in fulls]).to(device),
+        bcount=torch.stack([f.bcount for f in fulls]).to(device),
+    )
+
+
+def raw_masks_batched_fz(fz: gmm.FrozenMOGState, frames: torch.Tensor,
+                         mask_params: Sequence, use_hsv: bool = True):
+    """(C, H, W, 3) u8 BGR → (C, H, W) u8 raw masks with pre-morphology."""
+    x = color_ops.bgr_to_hsv_u8(frames) if use_hsv else frames
+    raw = gmm.apply_frozen_compressed(fz, x)
+    out = []
+    for c in range(frames.shape[0]):
+        m, mp = raw[c], mask_params[c]
+        if mp.opening_pre:
+            m = morphology.opening(m, (3, 3))
+        if mp.closing_pre:
+            m = morphology.closing(m, (3, 3))
+        out.append(m)
+    return torch.stack(out)
+
+
+def finalize_masks_batched(cleaned: torch.Tensor,
+                           mask_params: Sequence) -> torch.Tensor:
+    """(C, H, W) u8 cleaned masks → post-morphology, binarized {0, 255}."""
+    out = []
+    for c in range(cleaned.shape[0]):
+        m, mp = cleaned[c], mask_params[c]
+        if mp.opening_post:
+            m = morphology.opening(m, (2, 2))
+        if mp.closing_post:
+            m = morphology.closing(m, (2, 2))
+        out.append(torch.where(m > 0, 255, 0).to(torch.uint8))
+    return torch.stack(out)

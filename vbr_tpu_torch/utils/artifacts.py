@@ -1,0 +1,60 @@
+"""Background-model checkpoints in the JAX package's npz schema 2.
+
+Counterpart of ``vbr_tpu/utils/artifacts.py::save_mog_state`` /
+``load_mog_state``: the same keys (weight, mean, var, nframes, schema=2),
+so a model trained and saved by ``vbr_tpu`` loads into the port and back.
+``from_numpy_state`` takes such a state as numpy arrays directly.
+"""
+
+from __future__ import annotations
+
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from vbr_tpu_torch.ops.gmm import MOGState
+
+
+def from_numpy_state(state, device="cpu") -> MOGState:
+    """Any object with ``weight``/``mean``/``var``/``nframes`` array
+    attributes (e.g. the JAX package's ``MOGState`` after ``np.asarray``)
+    → the port's ``MOGState`` on ``device``.  Cameras carry over with
+    ``CameraParams.from_arrays(K, dist, rvec, tvec)``."""
+    def f32(a):  # a writable copy, so the tensor owns its memory
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    return MOGState(
+        weight=f32(state.weight),
+        mean=f32(state.mean),
+        var=f32(state.var),
+        nframes=torch.tensor(int(np.asarray(state.nframes)),
+                             dtype=torch.int32, device=device),
+    )
+
+
+def save_mog_state(path: str, state: MOGState) -> None:
+    """Persist a background model (schema 2: ``var`` = per-mixture total
+    variance, slots in OpenCV storage order)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(
+        path,
+        weight=state.weight.cpu().numpy(),
+        mean=state.mean.cpu().numpy(),
+        var=state.var.cpu().numpy(),
+        nframes=np.asarray(int(state.nframes), dtype=np.int32),
+        schema=np.int32(2),
+    )
+
+
+def load_mog_state(path: str, device="cpu"):
+    """The saved state, or None when the file is missing or of another
+    schema."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as d:
+        if "schema" not in d or int(d["schema"]) != 2:
+            return None
+        arrays = SimpleNamespace(**{k: d[k] for k in MOGState._fields})
+    return from_numpy_state(arrays, device)
