@@ -21,7 +21,20 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
   7. a frame whose speckle overflows the device component table: the
      overflow bit is set and the exact host redo matches the CPU run;
   8. a ``torch.profiler`` trace of the main path: device time by kernel
-     and the device's idle share.
+     and the device's idle share;
+  9. K3 (multi-frame MOG training) against its plain version on the card:
+     one camera, one 16-frame chunk from a mid-training state, all four
+     state arrays bit-equal, times and bound;
+ 10. training end to end, ``VisualHull.train_background`` on 32 seeded
+     background frames per camera: K3 launches counted, a band of rows of
+     one camera retrained by the plain version on the CPU, bit-equal;
+ 11. K4 (multi-frame carve) against its plain version on 8 frames of the
+     moving sphere: occupancy bit-equal, times, bound, active fraction;
+ 12. the offline path, ``VisualHull.process_frames_offline`` over the 16
+     frames on the trained model: per-frame occupancy and colours equal to
+     ``process_frame_fast``; K4 launches counted, ms/frame;
+ 13. K5 (single-phase labelling) on the foreground of the main-path
+     frame, against its plain version: labels and iterations equal, times.
 
 It prints one JSON line of per-kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -40,9 +53,13 @@ import numpy as np
 
 SEED = 1234
 STREAM_FRAMES = 16
+TRAIN_FRAMES = 32  # background frames per camera in the training phase
+TRAIN_CHUNK = 16  # frames per K3 launch (``train_mog``'s default)
+OFFLINE_NF = 8  # frames per K4 launch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 K2_OPS_PER_PIXEL_ITER = 17  # 4 diag compare+min, 4 scans × (compare+min), 1 change test
+K5_OPS_PER_PIXEL_ITER = 18  # 8 neighbour min, fg select, 4 scans × (select+min), 1 change test
 
 
 class Failed(Exception):
@@ -103,25 +120,31 @@ def paint_frame(rng, cams, bg, center, speckle=200, holes=4):
     return fr
 
 
-def timed_ms(fn, torch, dev, reps=20, flush=None):
+def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None):
     """Median ms of ``fn`` over ``reps`` calls (CUDA events on the card,
-    the host clock on the CPU), L2 flushed before each call."""
-    fn()
+    the host clock on the CPU), L2 flushed before each call.  With
+    ``setup``, each call is ``fn(setup())`` and ``setup`` is not timed
+    (for a kernel that updates its input in place)."""
+    def args():
+        return () if setup is None else (setup(),)
+
+    fn(*args())
     times = []
     for _ in range(reps):
+        a = args()
         if flush is not None:
             flush.zero_()
         if dev.type == "cuda":
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
-            fn()
+            fn(*a)
             e.record()
             e.synchronize()
             times.append(s.elapsed_time(e))
         else:
             t0 = time.perf_counter()
-            fn()
+            fn(*a)
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
@@ -139,19 +162,49 @@ def bound(n_bytes, n_ops):
 
 
 def max_abs_err(pairs):
-    return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def background_sequence(rng, bg_c, T, sigma=3.0, flicker=0.03):
+    """T training frames of one camera: its background image + per-pixel
+    noise, and on a few pixels per frame a brighter colour, so that
+    several mixture slots fill."""
+    H, W = bg_c.shape[:2]
+    fr = bg_c[None].astype(np.float32) + sigma * rng.standard_normal(
+        (T, H, W, 3), dtype=np.float32)
+    fr += 50.0 * (rng.random((T, H, W, 1), dtype=np.float32) < flicker)
+    return np.clip(np.rint(fr), 0, 255).astype(np.uint8)
+
+
+def train_state_from_mog(state, torch, nframes):
+    """A mid-training ``MOGTrainState`` from an apply-facing state: the
+    total variance split evenly over the channels, the stored key as a
+    match leaves it (w / sqrt(Σv)), 0 on the empty slots."""
+    from vbr_tpu_torch.ops.gmm import MOGTrainState
+
+    K = state.weight.shape[-1]
+    w = state.weight.reshape(-1, K).t().contiguous()
+    varsum = state.var.reshape(-1, K).t()
+    key = torch.where(w > 0, w / torch.sqrt(varsum.clamp_min(1e-6)), 0.0)
+    return MOGTrainState(
+        weight=w, sort_key=key.contiguous(),
+        mean=state.mean.reshape(-1, K, 3).permute(2, 1, 0).contiguous(),
+        var=(varsum / 3.0)[None].expand(3, -1, -1).contiguous(),
+        nframes=torch.tensor(nframes, dtype=torch.int32))
 
 
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
-        mask_params=None):
+        mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
-    ``focal``; returns the per-kernel report."""
+    ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
+    on ``train_frames`` background frames per camera; returns the
+    per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
     from vbr_tpu_torch.ops import carve_blocked as cb
-    from vbr_tpu_torch.ops import ccl_label
+    from vbr_tpu_torch.ops import ccl_label, gmm
     from vbr_tpu_torch.ops._cuda import build_kernels
     from vbr_tpu_torch.ops.color import bgr_to_hsv_u8
     from vbr_tpu_torch.pipelines import background
@@ -162,7 +215,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     dev = torch.device(device)
     grid = grid or GridConfig()
     H, W = image_hw
-    kernels = (cb.K1, ccl_label.K2)
+    kernels = (cb.K1, ccl_label.K2, gmm.K3, cb.K4, ccl_label.K5)
 
     print("[2] build", flush=True)
     if dev.type == "cuda":
@@ -274,7 +327,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         k.launches = 0
     occ, col = model.process_frame_fast(frame0)
     sync(torch, dev)
-    counts5 = [k.launches for k in kernels]
+    counts5 = [k.launches for k in kernels[:2]]
     expect(all(n >= 1 for n in counts5) or dev.type == "cpu",
            f"launch counters advanced on the main path: K1 {counts5[0]}, "
            f"K2 {counts5[1]}")
@@ -309,7 +362,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         outs.append(out)
         stamps.append(time.perf_counter())
     sync(torch, dev)
-    launches = [k.launches for k in kernels]
+    launches = [k.launches for k in kernels[:2]]
     per_frame = np.diff(stamps) * 1e3
     stream_ms = (stamps[-1] - stamps[0]) * 1e3 / STREAM_FRAMES
     expect(len(outs) == STREAM_FRAMES and all(n >= STREAM_FRAMES
@@ -339,8 +392,194 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     expect(torch.equal(occ_o.cpu(), occ_oc) and torch.equal(col_o.cpu(), col_oc),
            "overflowed frame redone exactly, card vs CPU")
 
-    profile = profile_step(torch, step, step_ms) if dev.type == "cuda" \
+    profile = profile_step(
+        torch, step, step_ms,
+        "[8] profile of 4 process_frame_fast steps") if dev.type == "cuda" \
         else None
+
+    # -- [9] K3 ----------------------------------------------------------
+    print(f"[9] K3 MOG training vs its plain version ({k3_frames} frames "
+          "from a mid-training state)", flush=True)
+    p_mid = MOGParams()
+    # the chunk crosses the 1/history clamp of the learning rate
+    ts0 = gmm.MOGTrainState(*(a.to(dev) for a in train_state_from_mog(
+        states[0], torch, p_mid.history - k3_frames // 2)))
+    chunk_bgr = background_sequence(rng, bg[0], k3_frames, sigma=6.0)
+    chunk = bgr_to_hsv_u8(torch.from_numpy(chunk_bgr).to(dev)).contiguous()
+
+    def clone_state():
+        return gmm.MOGTrainState(*(a.clone() for a in ts0))
+
+    got3 = gmm.train_chunk_kernel(clone_state(), chunk, p_mid)
+    want3 = gmm.train_chunk_plain(ts0, chunk, p_mid)
+    sync(torch, dev)
+    names3 = ("weight", "sort_key", "mean", "var")
+    k3_err = max_abs_err((getattr(got3, n), getattr(want3, n))
+                         for n in names3)
+    used = got3.weight > 0
+    expect(k3_err == 0 and all(torch.equal(getattr(got3, n),
+                                           getattr(want3, n))
+                               for n in names3 + ("nframes",)),
+           "K3 weight, sort_key, mean and var bit-equal to the plain "
+           f"version; slots in use per pixel: mean "
+           f"{float(used.sum(dim=0).float().mean()):.2f}, max "
+           f"{int(used.sum(dim=0).max())}; changed weights "
+           f"{float((got3.weight != ts0.weight).float().mean()):.4f}")
+    k3_ms = timed_ms(lambda st: gmm.train_chunk_kernel(st, chunk, p_mid),
+                     torch, dev, reps=5, flush=flush, setup=clone_state)
+    k3_plain_ms = timed_ms(lambda: gmm.train_chunk_plain(ts0, chunk, p_mid),
+                           torch, dev, reps=2, flush=flush)
+    # the update is in place and leaves a never-used slot (all zeros)
+    # alone, so this data needs the used slots' 8 floats read and written
+    # once, and the frames read once
+    n_used = int(used.sum())
+    k3_bytes = 2 * 32 * n_used + chunk.numel()
+    k3_ops = k3_frames * n_used * 25  # per used slot and frame
+    k3_bound, k3_bound_by = bound(k3_bytes, k3_ops)
+    print(f"  K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound "
+          f"{k3_bound:.5f} ms ({k3_bound_by}: {k3_bytes} B, {k3_ops} ops)")
+    del got3, want3, ts0, used
+
+    # -- [10] training end to end ----------------------------------------
+    print(f"[10] train_background on {train_frames} frames per camera",
+          flush=True)
+    t0 = time.perf_counter()
+    bg_seqs = [background_sequence(rng, bg[c], train_frames)
+               for c in range(len(cams))]
+    print(f"  background sequences made in {time.perf_counter() - t0:.2f} s")
+    model_tr = VisualHull(cams, grid, rig, mask_params or DEFAULT_MASK_PARAMS,
+                          device=dev)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    model_tr.train_background(bg_seqs)
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    k3_launches = gmm.K3.launches
+    want_launches = len(cams) * -(-train_frames // TRAIN_CHUNK)
+    expect(k3_launches == want_launches or dev.type == "cpu",
+           f"K3 launched {k3_launches} times ({len(cams)} cameras x "
+           f"{-(-train_frames // TRAIN_CHUNK)} chunks); training took "
+           f"{train_s:.2f} s")
+    band = slice(H // 2, H // 2 + 8)
+    p_tr = model_tr.mog_params[0]
+    expect(p_tr.history == train_frames, "history = frames per camera")
+    band_cpu = gmm.train_mog(bg_seqs[0][:, band], p_tr, device="cpu")
+    st0 = model_tr.bg_states[0]
+    expect(all(torch.equal(getattr(st0, n)[band].cpu(), getattr(band_cpu, n))
+               for n in ("weight", "mean", "var"))
+           and int(st0.nframes) == train_frames,
+           f"trained model of camera 1, rows {band.start}-{band.stop - 1}, "
+           "bit-equal to the plain version on the CPU")
+    slots = (st0.weight > 0).sum(dim=-1)
+    expect(int(slots.min()) >= 1 and int(slots.max()) >= 2,
+           f"slots filled per pixel: min {int(slots.min())}, mean "
+           f"{float(slots.float().mean()):.2f}, max {int(slots.max())}")
+    del bg_seqs
+
+    # -- [11] K4 ---------------------------------------------------------
+    print(f"[11] K4 multi-frame carve vs its plain version ({OFFLINE_NF} "
+          "frames)", flush=True)
+    masks8 = torch.stack([model.masks(f) for f in seq[:OFFLINE_NF]])
+    active8, _ = cb.block_activity(masks8.amax(dim=0), vt, btab.allv,
+                                   btab.ry, btab.rx)
+    _, full8 = cb.block_activity(masks8.amin(dim=0), vt, btab.allv, btab.ry,
+                                 btab.rx)
+    got4 = cb.carve_frames_kernel(btab.pk, active8, full8, masks8,
+                                  views_threshold=vt)
+    want4 = cb.carve_frames_plain(btab.pk, active8, full8, masks8,
+                                  views_threshold=vt)
+    sync(torch, dev)
+    k4_err = max_abs_err([(got4, want4)])
+    per_frame_occ = got4.flatten(1).sum(dim=1).tolist()
+    expect(k4_err == 0 and torch.equal(got4, want4)
+           and min(per_frame_occ) > 0,
+           f"K4 occupancy bit-equal at {tuple(got4.shape)}; occupied "
+           f"voxels per frame {per_frame_occ}")
+    k4_ms = timed_ms(lambda: cb.carve_frames_kernel(
+        btab.pk, active8, full8, masks8, views_threshold=vt), torch, dev,
+        flush=flush)
+    k4_plain_ms = timed_ms(lambda: cb.carve_frames_plain(
+        btab.pk, active8, full8, masks8, views_threshold=vt), torch, dev,
+        reps=5, flush=flush)
+    act8, ful8 = active8.bool(), full8.bool()
+    n_compute8 = int((act8 & ~ful8).sum())
+    k4_bytes = (8 * nblk + n_compute8 * C * cb.BV * 4  # flags, pk
+                + masks8.numel() + got4.numel())  # masks in, occupancy out
+    k4_ops = n_compute8 * cb.BV * C * (5 + 2 * OFFLINE_NF)
+    k4_bound, k4_bound_by = bound(k4_bytes, k4_ops)
+    print(f"  active on the union {float(act8.float().mean()):.4f} of "
+          f"{nblk} sub-blocks, full on the intersection {int(ful8.sum())}")
+    print(f"  K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
+          f"{k4_bound:.5f} ms ({k4_bound_by}: {k4_bytes} B, {k4_ops} ops)")
+
+    # -- [12] offline path -----------------------------------------------
+    print(f"[12] process_frames_offline over {STREAM_FRAMES} frames on the "
+          "trained model", flush=True)
+    seq_np = np.stack(seq)
+    model_tr.process_frames_offline(seq_np[:OFFLINE_NF],
+                                    frames_per_launch=OFFLINE_NF)  # warm-up
+    sync(torch, dev)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    occ_off, col_off = model_tr.process_frames_offline(
+        seq_np, frames_per_launch=OFFLINE_NF)
+    sync(torch, dev)
+    offline_ms = (time.perf_counter() - t0) * 1e3 / STREAM_FRAMES
+    off_launches = {k.source.stem: k.launches for k in kernels}
+    k4_launches = cb.K4.launches
+    expect(k4_launches >= STREAM_FRAMES // OFFLINE_NF or dev.type == "cpu",
+           f"launches on the offline path: {off_launches}")
+    expect(occ_off.shape == (STREAM_FRAMES, grid.num_voxels)
+           and occ_off.dtype == bool, "offline occupancy (F, N) bool")
+    for f in range(STREAM_FRAMES):
+        occ_f, col_f = model_tr.process_frame_fast(seq[f])
+        occ_f, col_f = occ_f.cpu().numpy(), col_f.cpu().numpy()
+        idx, col = col_off[f]
+        if not (np.array_equal(occ_off[f], occ_f)
+                and np.array_equal(idx, np.flatnonzero(occ_f))
+                and np.array_equal(col, col_f[idx])):
+            raise Failed(f"offline frame {f} differs from process_frame_fast")
+    n_occ_off = occ_off.sum(axis=1)
+    expect(n_occ_off.min() > 0 and len(set(n_occ_off.tolist())) > 1,
+           "per-frame occupancy and colours at occupied voxels equal to "
+           f"process_frame_fast; occupied voxels {n_occ_off.tolist()}")
+    print(f"  offline {offline_ms:.3f} ms/frame (host clock, upload and "
+          f"host colours included) beside stream {stream_ms:.3f} ms/frame")
+    offline_profile = profile_step(
+        torch, lambda: model_tr.process_frames_offline(
+            seq_np, frames_per_launch=OFFLINE_NF),
+        offline_ms, "  profile of one offline pass:", frames=STREAM_FRAMES,
+        frames_per_step=STREAM_FRAMES) if dev.type == "cuda" else None
+
+    # -- [13] K5 ---------------------------------------------------------
+    print("[13] K5 single-phase labelling vs its plain version", flush=True)
+    fg5 = (phase > 0).to(torch.int32)
+    ccl_label.K5.launches = 0
+    labels5, iters5 = ccl_label.label_components_batched(fg5)
+    sync(torch, dev)
+    k5_launches = ccl_label.K5.launches
+    labels5_p, iters5_p = ccl_label.label_components_batched_plain(fg5)
+    k5_err = max_abs_err([(labels5, labels5_p), (iters5, iters5_p)])
+    expect(k5_err == 0 and torch.equal(labels5, labels5_p)
+           and torch.equal(iters5, iters5_p)
+           and (k5_launches == 1 or dev.type == "cpu"),
+           f"K5 labels bit-equal at {tuple(fg5.shape)}, iterations to "
+           f"fixpoint {iters5.tolist()}")
+    expect(bool((labels5[fg5 == 0] == ccl_label.BIG).all())
+           and bool((labels5[fg5 > 0] < Hp * Wp).all()),
+           "background 2^30, foreground a linear index")
+    k5_ms = timed_ms(lambda: ccl_label.label_components_batched(fg5), torch,
+                     dev, flush=flush)
+    k5_plain_ms = timed_ms(
+        lambda: ccl_label.label_components_batched_plain(fg5), torch, dev,
+        reps=5, flush=flush)
+    k5_bytes = 2 * fg5.numel() * 4  # image in, labels out
+    k5_ops = K5_OPS_PER_PIXEL_ITER * Hp * Wp * int(iters5.sum())
+    k5_bound, k5_bound_by = bound(k5_bytes, k5_ops)
+    print(f"  K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound "
+          f"{k5_bound:.5f} ms ({k5_bound_by}: {k5_bytes} B, {k5_ops} ops)")
 
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n):
         return {"name": name, "route": "cuda",
@@ -357,45 +596,60 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
                 k2_bound, k2_bound_by, launches[1]),
+            row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
+                k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches),
+            row(cb.K4, "K4 carve_frames", "vbr_tpu/ops/carve_pallas.py:1212",
+                k4_err, k4_ms, k4_plain_ms, k4_bound, k4_bound_by,
+                k4_launches),
+            row(ccl_label.K5, "K5 ccl_label", "vbr_tpu/ops/ccl_pallas.py:67",
+                k5_err, k5_ms, k5_plain_ms, k5_bound, k5_bound_by,
+                k5_launches),
         ],
         "main_path": {"process_frame_fast_ms": step_ms,
                       "stream_ms_per_frame": stream_ms,
                       "stream_frames": STREAM_FRAMES,
                       "profile": profile},
+        "training": {"frames_per_camera": train_frames, "seconds": train_s},
+        "offline": {"ms_per_frame": offline_ms, "frames": STREAM_FRAMES,
+                    "frames_per_launch": OFFLINE_NF,
+                    "launches": off_launches, "profile": offline_profile},
     }
 
 
-def profile_step(torch, step, step_ms, frames=4, top=15):
-    """[8] ``torch.profiler`` over a few main-path steps: device time per
-    frame by kernel, and the device's idle share of the unprofiled step
-    time ``step_ms`` (the profiler's own host cost is left out)."""
+def profile_step(torch, step, step_ms, title, frames=4, frames_per_step=1,
+                 top=15):
+    """``torch.profiler`` over steps covering ``frames`` frames: device
+    time per frame by kernel, and the device's idle share of the
+    unprofiled time per frame ``step_ms`` (the profiler's own host cost is
+    left out)."""
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"[8] profile of {frames} process_frame_fast steps", flush=True)
+    print(title, flush=True)
     step()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
+        for _ in range(frames // frames_per_step):
             step()
     rows = []
     for ev in prof.key_averages():  # device-side events only (no op rows)
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if str(ev.device_type).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us / 1e3 / frames, ev.count // frames, ev.key))
+            rows.append((dev_us / 1e3 / frames, ev.count / frames, ev.key))
     if not rows:
         print("  the profiler saw no device time")
         return None
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    n_ops = sum(r[1] for r in rows)
     print(f"  device busy {busy_ms:.3f} ms/frame of {step_ms:.3f} ms "
           f"(unprofiled), idle share {1 - busy_ms / step_ms:.3f}; "
-          f"{sum(r[1] for r in rows)} device ops/frame")
+          f"{n_ops:.0f} device ops/frame")
     for ms, n, name in rows[:top]:
-        print(f"  {ms:9.4f} ms/frame  x{n:<4d} {name[:90]}")
+        print(f"  {ms:9.4f} ms/frame  x{n:<6.4g} {name[:90]}")
     return {"device_busy_ms_per_frame": busy_ms,
             "idle_share": 1 - busy_ms / step_ms,
-            "device_ops_per_frame": sum(r[1] for r in rows),
+            "device_ops_per_frame": n_ops,
             "top": [{"name": name[:90], "ms_per_frame": ms, "calls": n}
                     for ms, n, name in rows[:top]]}
 

@@ -1,4 +1,5 @@
-"""Port parity: combined-phase labelling (K2) and the mask cleanup.
+"""Port parity: combined-phase (K2) and single-phase (K5) labelling and
+the mask cleanup.
 
 ``vbr_tpu``'s Pallas labeller runs in interpret mode; the port runs its
 plain version on the CPU.  Labels, cleaned masks and overflow bits are
@@ -163,9 +164,72 @@ def test_clean_mask_host_matches_cv2(seed):
             jccl.clean_mask_host(raw, fig, inner))
 
 
+def _single_both(fg, max_iters):
+    ref = np.asarray(jcclp.label_components_batched(
+        jnp.asarray(fg), max_iters=max_iters, interpret=True))
+    got, iters = tlab.label_components_batched(torch.from_numpy(fg),
+                                               max_iters=max_iters)
+    return ref, got.numpy(), iters.numpy()
+
+
+@pytest.mark.parametrize("density", [0.3, 0.55])
+def test_single_phase_labels_match_pallas(density):
+    """K5 on random masks, sparse (many small components) and near the
+    8-connected percolation threshold (long winding ones)."""
+    rng = np.random.default_rng(int(density * 100))
+    fg = (rng.random((2, 32, 128)) < density).astype(np.int32)
+    ref, got, iters = _single_both(fg, 64)
+    np.testing.assert_array_equal(got, ref)
+    assert (got[fg == 0] == tlab.BIG).all() and (got[fg > 0] < 32 * 128).all()
+    assert (iters < 64).all() and (iters >= 2).all()
+    lab, n = ndimage.label(fg[0], np.ones((3, 3)))
+    assert len(np.unique(got[0][fg[0] > 0])) == n
+
+
+def _serpentine(H=144, W=128):
+    """Every other row joined alternately at its right and left end: one
+    component that the fixpoint walks about one row per iteration."""
+    m = np.zeros((H, W), np.int32)
+    m[::2] = 1
+    m[1::4, W - 1] = 1
+    m[3::4, 0] = 1
+    return m
+
+
+def test_single_phase_labels_match_pallas_at_the_cap():
+    """A serpentine needing more than 64 iterations: equal at the cap,
+    where converged labels would differ."""
+    fg = _serpentine()[None]
+    assert ndimage.label(fg[0], np.ones((3, 3)))[1] == 1
+    ref, got, iters = _single_both(fg, 64)
+    np.testing.assert_array_equal(got, ref)
+    assert iters.tolist() == [64]
+    full, it_full = tlab.label_components_batched(torch.from_numpy(fg), 512)
+    assert 64 < int(it_full[0]) < 512
+    assert (full.numpy() != got).any()
+    assert (full.numpy()[0][fg[0] > 0] == 0).all()
+
+
+@pytest.mark.parametrize("value", [0, 1])
+def test_single_phase_empty_and_full_image(value):
+    fg = np.full((1, 8, 128), value, np.int32)
+    ref, got, iters = _single_both(fg, 64)
+    np.testing.assert_array_equal(got, ref)
+    assert (got == (0 if value else tlab.BIG)).all()
+    assert iters.tolist() == [2 if value else 1]
+
+
 def test_label_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         tlab.label_components_combined(
             torch.zeros((1, 8, 128), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="multiples"):
         tlab.label_components_combined(torch.zeros((1, 8, 100)))
+    with pytest.raises(ValueError, match="no kernel"):
+        tlab.label_components_batched(
+            torch.zeros((1, 8, 128), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="multiples"):
+        tlab.label_components_batched(torch.zeros((1, 8, 100)))
+    before = tlab.K5.launches
+    tlab.label_components_batched(torch.ones((1, 8, 128)))
+    assert tlab.K5.launches == before

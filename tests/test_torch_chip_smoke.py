@@ -56,9 +56,11 @@ def test_phases_run_on_cpu_small_rig(capsys):
           for p in DEFAULT_MASK_PARAMS]
     report = chip_smoke.run("cpu", (120, 160), GridConfig(nx=32, ny=32,
                                                           nz=32),
-                            focal=120.0, mask_params=mp)
+                            focal=120.0, mask_params=mp, train_frames=3,
+                            k3_frames=2)
     names = [k["name"] for k in report["kernels"]]
-    assert names == ["K1 carve_blocked", "K2 ccl_combined"]
+    assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
+                     "K4 carve_frames", "K5 ccl_label"]
     for k in report["kernels"]:
         assert k["max_abs_err"] == 0 and k["bound_ms"] > 0
         assert set(k) == {"name", "route", "source", "replaces", "launches",
@@ -67,3 +69,9 @@ def test_phases_run_on_cpu_small_rig(capsys):
         assert os.path.exists(os.path.join(ROOT, k["source"]))
     out = capsys.readouterr().out
     assert "overflow bits set" in out and "FAILED" not in out
+    for phase in ("[9] K3", "[10] train_background", "[11] K4",
+                  "[12] process_frames_offline", "[13] K5"):
+        assert phase in out
+    assert "bit-equal to the plain version on the CPU" in out
+    assert "equal to process_frame_fast" in out
+    assert report["offline"]["frames"] == 16

@@ -1,0 +1,289 @@
+"""Port parity: MOG background training (``_update_arrays``, the
+multi-frame loop behind kernel K3, ``train_mog``).
+
+The same seeded frames go through ``vbr_tpu`` and the port on the CPU
+(where the K3 wrapper runs its plain version).  What is compared how:
+
+* Against ``vbr_tpu`` run op by op (``jax.disable_jit()``): ``weight``,
+  ``mean``, ``var``, the apply-facing ``MOGState`` and the training masks
+  are EXACT.  The stored ``sort_key`` is within 4 ulp: the port computes
+  it as OpenCV does, ``w / sqrtf(Σv)`` in IEEE arithmetic, while XLA's
+  ``sqrt``/``rsqrt`` on the CPU is not the correctly rounded one.
+* Against ``vbr_tpu`` as it compiles on the CPU (``jit``: the XLA scan
+  ``_train_chunk`` and the Pallas kernel in interpret mode) within
+  ``JIT_ULP`` units in the last place: XLA:CPU contracts ``a + b·c`` into a
+  fused multiply-add under ``jit`` (one rounding where ``vbr_tpu``'s
+  formulas, OpenCV and the port round twice), which moves ``w + α(1−w)``,
+  ``μ + α·diff`` and ``v + α(diff² − v)`` by a few ulp over a chunk
+  (measured: at most 6 ulp after 11 frames of the input below).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vbr_tpu.ops import color as jcolor
+from vbr_tpu.ops import gmm as jgmm
+from vbr_tpu.utils import config as jconfig
+from vbr_tpu_torch.models import visual_hull as tvh
+from vbr_tpu_torch.ops import color as tcolor
+from vbr_tpu_torch.ops import gmm as tgmm
+from vbr_tpu_torch.pipelines import background as tbackground
+from vbr_tpu_torch.utils import artifacts as tart
+from vbr_tpu_torch.utils import config as tconfig
+from vbr_tpu_torch.utils import synthetic as tsyn
+
+JIT_ULP = 16  # see the module docstring
+FIELDS = ("weight", "mean", "var")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread each, so parallel test workers
+    do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _params(**kw):
+    return jconfig.MOGParams(**kw), tconfig.MOGParams(**kw)
+
+
+def _ulp(a, b):
+    """Largest distance in units in the last place between f32 arrays."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max())
+
+
+def _assert_states_exact(st_t, st_j, fields=FIELDS):
+    for name in fields:
+        np.testing.assert_array_equal(getattr(st_t, name).numpy(),
+                                      np.asarray(getattr(st_j, name)),
+                                      err_msg=name)
+    assert int(st_t.nframes) == int(st_j.nframes)
+
+
+def _anchored_frames(rng, T, H, W, sigma=4.0):
+    """Every pixel jumps among 9 well-separated colours (the cube's corners
+    and centre, further apart than the match radius) with a little noise:
+    modes match, bubble, and at least 8 slots fill."""
+    anchors = np.array([[x, y, z] for x in (20, 235) for y in (20, 235)
+                        for z in (20, 235)] + [[128, 128, 128]], np.float64)
+    pick = rng.integers(0, len(anchors), (T, H, W))
+    fr = anchors[pick] + rng.normal(0, sigma, (T, H, W, 3))
+    return np.clip(fr, 0, 255).astype(np.uint8)
+
+
+def test_init_states_match():
+    pj, pt = _params(n_mixtures=7)
+    for init_j, init_t in ((jgmm.init_state, tgmm.init_state),
+                           (jgmm.init_train_state, tgmm.init_train_state)):
+        st_j, st_t = init_j((6, 10), pj), init_t((6, 10), pt)
+        assert st_t._fields == st_j._fields
+        for a, b in zip(st_t, st_j):
+            assert tuple(a.shape) == b.shape and not a.any()
+            assert str(a.dtype).split(".")[1] == str(b.dtype)
+
+
+# -- one chunk, at the JAX package's own test size --------------------------
+
+H0, W0, T0 = 16, 48, 11
+
+
+@pytest.fixture(scope="module")
+def chunk():
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (T0, H0, W0, 3), dtype=np.uint8)
+    pj, pt = _params(history=T0, use_hsv=False, n_mixtures=50)
+    st_t, masks_t = tgmm._train_chunk(
+        tgmm.init_train_state((H0, W0), pt), torch.from_numpy(frames), pt,
+        True)
+    return frames, pj, pt, st_t, masks_t
+
+
+def test_train_chunk_exact_against_op_by_op(chunk):
+    frames, pj, _, st_t, masks_t = chunk
+    with jax.disable_jit():
+        st_j, masks_j = jgmm._train_chunk(
+            jgmm.init_train_state((H0, W0), pj), jnp.asarray(frames), pj,
+            True)
+    _assert_states_exact(st_t, st_j)
+    assert _ulp(st_t.sort_key.numpy(), st_j.sort_key) <= 4
+    np.testing.assert_array_equal(masks_t.numpy(), np.asarray(masks_j))
+    assert 0 < masks_t.numpy().mean() < 255
+
+
+@pytest.mark.parametrize("ref", ["xla_scan", "pallas_interpret"])
+def test_train_chunk_against_compiled(chunk, ref):
+    frames, pj, _, st_t, _ = chunk
+    st0 = jgmm.init_train_state((H0, W0), pj)
+    if ref == "xla_scan":
+        st_j, _ = jgmm._train_chunk(st0, jnp.asarray(frames), pj, False)
+    else:
+        st_j = jgmm._train_chunk_pallas(st0, jnp.asarray(frames), pj,
+                                        interpret=True)
+    for name in FIELDS + ("sort_key",):
+        assert _ulp(getattr(st_t, name).numpy(),
+                    getattr(st_j, name)) <= JIT_ULP, name
+    assert int(st_t.nframes) == int(st_j.nframes) == T0
+
+
+def test_k3_wrapper_uses_plain_on_cpu_only(chunk):
+    frames, _, pt, st_t, _ = chunk
+    before = tgmm.K3.launches
+    st0 = tgmm.init_train_state((H0, W0), pt)
+    got = tgmm.train_chunk_kernel(st0, torch.from_numpy(frames), pt)
+    for name in FIELDS + ("sort_key", "nframes"):
+        assert torch.equal(getattr(got, name), getattr(st_t, name)), name
+    assert tgmm.K3.launches == before
+    assert not st0.weight.any()  # the plain version allocates new arrays
+    assert "-fmad=false" in tgmm.K3.flags
+    meta = tgmm.MOGTrainState(*(a.to("meta") for a in st0))
+    with pytest.raises(ValueError, match="no kernel"):
+        tgmm.train_chunk_kernel(meta, torch.from_numpy(frames).to("meta"),
+                                pt)
+
+
+def test_kernel_library_named_by_source_and_flags():
+    """A changed ``nvcc`` flag must not load a library built without it."""
+    from vbr_tpu_torch.ops._cuda import CudaKernel
+
+    plain = CudaKernel("mog_train.cu", "vbr_mog_train", [])
+    nofma = CudaKernel("mog_train.cu", "vbr_mog_train", [],
+                       extra_flags=("-fmad=false",))
+    assert plain.lib_path != nofma.lib_path == tgmm.K3.lib_path
+    assert nofma.lib_path.name.startswith("libmog_train_")
+
+
+# -- train_mog across chunk boundaries ---------------------------------------
+
+
+@pytest.mark.parametrize("use_hsv", [False, True])
+def test_train_mog_across_chunks(use_hsv):
+    rng = np.random.default_rng(8)
+    frames = _anchored_frames(rng, 21, 8, 32)
+    pj, pt = _params(history=21, use_hsv=use_hsv, n_mixtures=10)
+    with jax.disable_jit():
+        st_j, masks_j = jgmm.train_mog(frames, pj, chunk=8,
+                                       return_masks=True, backend="xla")
+    st_t = tgmm.train_mog(frames, pt, chunk=8, device="cpu")
+    _assert_states_exact(st_t, st_j)
+    if not use_hsv:  # Σw runs over many filled slots
+        assert int((st_t.weight > 0).sum(dim=-1).max()) >= 8
+    st_m, masks_t = tgmm.train_mog(frames, pt, chunk=8, return_masks=True,
+                                   device="cpu")
+    _assert_states_exact(st_m, st_j)
+    assert masks_t.shape == (21, 8, 32) and masks_t.dtype == np.uint8
+    np.testing.assert_array_equal(masks_t, masks_j)
+    probe = np.clip(frames[-1].astype(np.int32) + 60, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(
+        tgmm.extract_mask(st_t, probe, pt).numpy(),
+        np.asarray(jgmm.extract_mask(st_j, probe, pj)))
+
+
+def test_train_mog_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgmm.train_mog(np.zeros((1, 8, 8, 3), np.uint8))
+
+
+def test_mid_training_state_carried_across():
+    """Both packages go on from one mid-training state whose ``nframes``
+    is past ``history`` (so α sits at its 1/history clamp)."""
+    rng = np.random.default_rng(9)
+    H, W = 8, 32
+    frames = _anchored_frames(rng, 15, H, W)
+    pj, pt = _params(history=5, use_hsv=False, n_mixtures=10)
+    mid_j, _ = jgmm._train_chunk(jgmm.init_train_state((H, W), pj),
+                                 jnp.asarray(frames[:9]), pj, False)
+    mid_np = jgmm.MOGTrainState(*(np.asarray(a) for a in mid_j))
+    assert int(mid_np.nframes) == 9 > pj.history
+    mid_t = tart.train_state_from_numpy(mid_np)
+    back = tart.train_state_to_numpy(mid_t)
+    for name in mid_np._fields:
+        np.testing.assert_array_equal(getattr(back, name),
+                                      getattr(mid_np, name))
+    with jax.disable_jit():
+        end_j, _ = jgmm._train_chunk(
+            jgmm.MOGTrainState(*(jnp.asarray(a) for a in mid_np)),
+            jnp.asarray(frames[9:]), pj, False)
+    end_t = tgmm.train_chunk_kernel(mid_t, torch.from_numpy(frames[9:]), pt)
+    _assert_states_exact(end_t, end_j)
+    assert _ulp(end_t.sort_key.numpy(), end_j.sort_key) <= 4
+    assert int(end_t.nframes) == 15
+    fin_t = tgmm.finalize_train_state(end_t, (H, W), pt)
+    fin_j = jgmm.finalize_train_state(end_j, (H, W), pj)
+    _assert_states_exact(fin_t, fin_j)
+
+
+def test_trained_state_compresses_alike():
+    """A state trained by each package gives the same prefix length Ke,
+    per-pixel bounds and frozen masks."""
+    rng = np.random.default_rng(10)
+    H, W = 8, 32
+    bg = rng.integers(30, 220, (H, W, 3))
+    frames = np.clip(bg + rng.normal(0, 5, (16, H, W, 3)), 0,
+                     255).astype(np.uint8)
+    frames[6:10, 2:6] = rng.integers(0, 256, (4, 4, W, 3))  # a passer-by
+    pj, pt = _params(history=16, n_mixtures=10)
+    with jax.disable_jit():
+        st_j = jgmm.train_mog(frames, pj, chunk=16, backend="xla")
+    st_t = tgmm.train_mog(frames, pt, chunk=16, device="cpu")
+    _assert_states_exact(st_t, st_j)
+    fz_j, ke_j = jgmm.compress_frozen(st_j, pj)
+    fz_t, ke_t = tgmm.compress_frozen(st_t, pt)
+    assert ke_t == ke_j
+    np.testing.assert_array_equal(fz_t.bcount.numpy(),
+                                  np.asarray(fz_j.bcount))
+    probe = frames[-1].copy()
+    probe[2:7, 8:20] = 255 - probe[2:7, 8:20]
+    m_j = np.asarray(jgmm.apply_frozen_compressed(
+        fz_j, jcolor.bgr_to_hsv_u8(jnp.asarray(probe))))
+    m_t = tgmm.apply_frozen_compressed(
+        fz_t, tcolor.bgr_to_hsv_u8(torch.from_numpy(probe))).numpy()
+    np.testing.assert_array_equal(m_t, m_j)
+    assert 0 < (m_t > 0).mean() < 1
+
+
+# -- the model's entry point -------------------------------------------------
+
+
+def test_train_background_and_round_trip(tmp_path):
+    H, W, C = 24, 32, 4
+    rng = np.random.default_rng(12)
+    seqs = [np.clip(rng.integers(40, 200, (H, W, 3))
+                    + rng.normal(0, 4, (5 + c, H, W, 3)), 0,
+                    255).astype(np.uint8) for c in range(C)]
+    rig = tconfig.RigConfig(image_height=H, image_width=W)
+    cams = tsyn.synthetic_cameras(C, image_hw=(H, W), f=40.0)
+    model = tvh.VisualHull(cams, tconfig.GridConfig(nx=8, ny=8, nz=8), rig,
+                           device="cpu")
+    model.train_background(seqs)
+    assert [p.history for p in model.mog_params] == [5, 6, 7, 8]
+    assert [int(s.nframes) for s in model.bg_states] == [5, 6, 7, 8]
+    want = tbackground.train_background_model(
+        seqs[2], tconfig.MOGParams(history=7), device="cpu")
+    stacked = tbackground.stack_states(model.bg_states)
+    assert stacked.weight.shape == (C, H, W, 50)
+    assert stacked.nframes.tolist() == [5, 6, 7, 8]
+    for name in FIELDS:
+        assert torch.equal(getattr(stacked, name)[2], getattr(want, name))
+    with jax.disable_jit():
+        ref = jgmm.train_mog(seqs[0][:, :8], jconfig.MOGParams(history=5))
+    np.testing.assert_array_equal(model.bg_states[0].weight[:8].numpy(),
+                                  np.asarray(ref.weight))
+    model.save_background_models(str(tmp_path))
+    m2 = tvh.VisualHull(cams, model.grid, rig, device="cpu")
+    assert m2.load_background_models(str(tmp_path))
+    for a, b in zip(m2.bg_states, model.bg_states):
+        for name in FIELDS + ("nframes",):
+            assert torch.equal(getattr(a, name), getattr(b, name))
+    with pytest.raises(ValueError, match="background sequences"):
+        model.train_background(seqs[:2])

@@ -10,6 +10,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "vbr_tpu_torch.models.visual_hull",
+    "vbr_tpu_torch.ops._cuda",
+    "vbr_tpu_torch.ops.camera",
     "vbr_tpu_torch.ops.carve",
     "vbr_tpu_torch.ops.carve_blocked",
     "vbr_tpu_torch.ops.ccl",
@@ -19,6 +21,8 @@ MODULES = [
     "vbr_tpu_torch.ops.morphology",
     "vbr_tpu_torch.pipelines.background",
     "vbr_tpu_torch.utils.artifacts",
+    "vbr_tpu_torch.utils.config",
+    "vbr_tpu_torch.utils.device",
     "vbr_tpu_torch.utils.synthetic",
     "chip_smoke",
 ]

@@ -1,8 +1,9 @@
-"""VisualHull — the live per-frame visual-hull model.
+"""VisualHull — background training, the live per-frame step and the
+offline whole-sequence path of the visual-hull model.
 
-Counterpart of ``vbr_tpu/models/visual_hull.py::VisualHull`` on its main
-path: a calibrated rig + frozen per-camera background models + carve
-tables, with the per-frame step
+Counterpart of ``vbr_tpu/models/visual_hull.py::VisualHull``: a calibrated
+rig + per-camera background models (trained here by ``train_background``
+through kernel K3, or loaded) + carve tables, with the per-frame step
 
     frames (C,H,W,3) u8 → HSV → compressed frozen MOG apply →
     pre-morphology → CCL cleanup (kernel K2) → post-morphology →
@@ -12,7 +13,10 @@ tables, with the per-frame step
 counterpart of ``_full_step_pallas`` with ``ingest="bgr"``) and redo a
 frame exactly through the host cleanup when a camera overflows the
 device component tables.  ``process_frame`` is the plain f64 table path.
-Outputs are torch tensors on the model's device.
+Their outputs are torch tensors on the model's device.
+``process_frames_offline`` runs the mask stages over every (frame, camera)
+image of a chunk and carves the chunk in one launch of kernel K4
+(``_full_step_frames``); it returns host arrays.
 """
 
 from __future__ import annotations
@@ -106,6 +110,29 @@ class VisualHull:
                 color_camera=self.rig.color_camera, device=self.device,
             )
 
+    # -- setup ------------------------------------------------------------
+
+    def train_background(self, frames_per_camera: Sequence[np.ndarray]):
+        """Train one MOG model per camera on its decoded background
+        sequence, ``frames_per_camera[c]`` (T_c, H, W, 3) u8 BGR, with
+        ``MOGParams(history=T_c)``; sets ``bg_states`` / ``mog_params``.
+
+        The JAX package's form takes a ``data_dir`` and decodes
+        ``cam*/background.avi`` itself; that form waits until the rig data
+        and a decoder without OpenCV are in the repository."""
+        if len(frames_per_camera) != self.rig.num_cameras:
+            raise ValueError(
+                f"expected {self.rig.num_cameras} background sequences, got "
+                f"{len(frames_per_camera)}")
+        self.bg_states = []
+        self.mog_params = []
+        for frames in frames_per_camera:
+            p = MOGParams(history=frames.shape[0])
+            self.bg_states.append(background.train_background_model(
+                frames, p, device=self.device))
+            self.mog_params.append(p)
+        self._stacked_fz = None
+
     # -- per-frame step ---------------------------------------------------
 
     def masks(self, frames) -> torch.Tensor:
@@ -193,6 +220,65 @@ class VisualHull:
             return self._redo(frames_d, layout)
         return occ, col
 
+    # -- offline whole-sequence path ---------------------------------------
+
+    def process_frames_offline(self, frames: np.ndarray,
+                               frames_per_launch: int = 8,
+                               with_colors: bool = True):
+        """Batched reconstruction of a frame sequence (F, C, H, W, 3) u8.
+
+        Frames go through in chunks of ``frames_per_launch``: the mask
+        stages run over every (frame, camera) image of the chunk and one
+        launch of kernel K4 carves all its frames (the last chunk is
+        padded by repeating the last frame; those outputs are dropped).
+        Per-frame occupancy equals :meth:`process_frame`; a frame that
+        overflows a component table is redone exactly through it.
+
+        Colours are gathered on the host from the colour camera's frame at
+        occupied voxels only.  Returns ``(occ, colors)``: ``occ`` (F, N)
+        bool canonical occupancy and ``colors`` a per-frame list of
+        ``(idx (M_f,) i64, col (M_f, 3) u8 BGR)``, or None with
+        ``with_colors=False``; all numpy.  Needs grid dims divisible by 8
+        (``ValueError`` otherwise; use :meth:`process_frame`)."""
+        self._ensure_fast_state()
+        try:
+            self._ensure_btab()
+        except ValueError as e:
+            raise ValueError(
+                "process_frames_offline needs 8-divisible grid dims "
+                f"(got {self.grid.shape}); use process_frame instead") from e
+        frames = np.asarray(frames)
+        F = frames.shape[0]
+        NF = int(frames_per_launch)
+        pad = (-F) % NF
+        frames_p = (np.concatenate([frames, np.repeat(frames[-1:], pad,
+                                                      axis=0)])
+                    if pad else frames)
+        occ_chunks, ovf_chunks = [], []
+        for s in range(0, F + pad, NF):
+            occ_c, ovf_c = _full_step_frames(
+                self._stacked_fz, self._frames(frames_p[s:s + NF]),
+                self._btab, mask_params=self.mask_params,
+                use_hsv=self.mog_params[0].use_hsv,
+                fig_thresholds=self._fig_thresholds,
+                inner_thresholds=self._inner_thresholds,
+                views_threshold=self.rig.views_threshold,
+            )
+            occ_chunks.append(occ_c.cpu().numpy())
+            ovf_chunks.append(ovf_c.cpu().numpy())
+        occ = np.concatenate(occ_chunks)[:F]
+        ovf = np.concatenate(ovf_chunks)[:F]
+        for f in np.flatnonzero(ovf.any(axis=1)):  # exact redo, rare
+            occ[f] = self.process_frame(frames[f])[0].cpu().numpy()
+        if not with_colors:
+            return occ, None
+        lin_idx = self.tables.lin_idx.cpu().numpy()
+        cc = self.rig.color_camera
+        colors = [carve_blocked.frame_colors_host(occ[f], frames[f][cc],
+                                                  lin_idx, color_camera=cc)
+                  for f in range(F)]
+        return occ, colors
+
     # -- checkpointing ----------------------------------------------------
 
     def save_background_models(self, out_dir: str):
@@ -231,3 +317,24 @@ def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
         views_threshold=views_threshold, layout=layout,
     )
     return occ, col, ovf
+
+
+def _full_step_frames(stacked_fz, frames, btab, *, mask_params, use_hsv,
+                      fig_thresholds, inner_thresholds, views_threshold):
+    """The multi-frame pipeline on (NF, C, H, W, 3) u8 frames: the mask
+    stages over every (frame, camera) image (one cleanup, so one launch of
+    kernel K2, for all NF·C images), then the chunk's carve (kernel K4).
+    Returns (occ (NF, N) bool canonical, overflow (NF, C) bool)."""
+    NF, C, H, W = frames.shape[:4]
+    raw = torch.stack([
+        background.raw_masks_batched_fz(stacked_fz, fr, mask_params, use_hsv)
+        for fr in frames])
+    cleaned, ovf = ccl.clean_masks_batched(
+        raw.reshape(NF * C, H, W), fig_thresholds * NF,
+        inner_thresholds * NF)
+    masks = torch.stack([
+        background.finalize_masks_batched(m, mask_params)
+        for m in cleaned.reshape(NF, C, H, W)])
+    occ = carve_blocked._carve_frames_device(
+        masks, btab, views_threshold=views_threshold)
+    return occ, ovf.reshape(NF, C)

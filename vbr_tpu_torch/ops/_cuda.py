@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
-Libraries are named by a hash of their source and live in ``build/kernels``
-at the repository root (listed in ``.gitignore``), so a changed source
-rebuilds and an unchanged one loads at once.  ``build_kernels`` starts one
+Libraries are named by a hash of their source and their ``nvcc`` flags and
+live in ``build/kernels`` at the repository root (listed in
+``.gitignore``), so a changed source or flag rebuilds and an unchanged one
+loads at once.  ``build_kernels`` starts one
 ``nvcc`` per source, all together, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module, on hosts
@@ -49,13 +50,16 @@ class CudaKernel:
     ``launch(*args)`` calls the C entry point, which launches the kernel
     on the given stream and returns ``cudaGetLastError()``; a non-zero
     status raises.  ``launches`` counts successful launches and is reset
-    by whoever wants to count a run (``chip_smoke.py``).
+    by whoever wants to count a run (``chip_smoke.py``).  ``extra_flags``
+    are this source's own ``nvcc`` flags, after ``NVCC_FLAGS``.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 extra_flags: Sequence[str] = ()):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flags = (*NVCC_FLAGS, *extra_flags)
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -63,7 +67,9 @@ class CudaKernel:
 
     @property
     def lib_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update("\0".join(self.flags).encode())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
     def _start_build(self):
@@ -73,7 +79,7 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out

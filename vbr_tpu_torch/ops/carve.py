@@ -3,7 +3,9 @@
 Counterpart of ``vbr_tpu/ops/carve.py``: the float64 host projection
 tables (``_build_tables_f64``, the exactness oracle: float bounds check,
 truncate-toward-zero pixel index), the per-frame table carve
-``carve_from_tables`` and the host viewer compaction ``compact_voxels``.
+``carve_from_tables``, its loop over a batch of frames
+``carve_frames_batched`` and the host viewer compaction
+``compact_voxels``.
 """
 
 from __future__ import annotations
@@ -81,6 +83,25 @@ def carve_from_tables(
     occupancy = count >= views_threshold
     colors = images[color_camera].reshape(-1, 3)[lin[color_camera]]
     return occupancy, colors
+
+
+def carve_frames_batched(
+    masks: torch.Tensor,  # (F, C, H, W) u8
+    images: torch.Tensor,  # (F, C, H, W, 3) u8
+    valid: torch.Tensor,
+    lin_idx: torch.Tensor,
+    *,
+    views_threshold: int = 4,
+    color_camera: int = 1,
+):
+    """:func:`carve_from_tables` over a batch of F frames →
+    (occupancy (F, N) bool, colors (F, N, 3) u8)."""
+    outs = [carve_from_tables(m, im, valid, lin_idx,
+                              views_threshold=views_threshold,
+                              color_camera=color_camera)
+            for m, im in zip(masks, images)]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([c for _, c in outs]))
 
 
 def compact_voxels(occupancy, colors, grid: GridConfig,

@@ -1,4 +1,4 @@
-"""Blocked visual-hull carve (kernel K1) and its static tables.
+"""Blocked visual-hull carve (kernels K1 and K4) and its static tables.
 
 Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
 
@@ -9,14 +9,18 @@ Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
     8×8 fine cells and the bilinear row/column span form, in float32
     matmuls whose 0/1 sums are exact), the carve kernel, and the
     blocked/canonical output handling of ``carve_blocked``;
+  * the offline multi-frame carve — ``carve_frames_blocked``: kernel K4
+    (``csrc/carve_frames.cu``) carves ``frames_per_launch`` frames per
+    launch, occupancy only, with colours gathered on the host
+    (``frame_colors_host``);
   * host helpers for the blocked layout — ``canonicalize_host`` and
     ``compact_voxels_blocked``.
 
 The voxel grid is tiled into 8³ sub-blocks (512 voxels) grouped into
 superblocks; ``perm`` maps each (superblock, sub-block, voxel) slot to its
-canonical voxel index.  On a CUDA tensor the carve runs the hand-written
-kernel ``csrc/carve_blocked.cu``; on a CPU tensor its plain PyTorch
-version.  Both emit final u8 occupancy and u8 BGR colours.
+canonical voxel index.  On a CUDA tensor a carve runs its hand-written
+kernel; on a CPU tensor its plain PyTorch version.  Both emit final u8
+occupancy (and K1 u8 BGR colours).
 """
 
 from __future__ import annotations
@@ -42,6 +46,10 @@ INVALID_ROW = 1023  # ``pk`` row of a projection outside the image
 K1 = CudaKernel(
     "carve_blocked.cu", "vbr_carve_blocked",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+K4 = CudaKernel(
+    "carve_frames.cu", "vbr_carve_frames",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
 
@@ -339,6 +347,110 @@ def carve_blocked(masks: torch.Tensor, image: torch.Tensor,
     colors = _blocked_to_canonical(col_v, tables.sub_shape, tables.sup_shape,
                                    tables.nblocks)
     return occ.bool(), colors
+
+
+# ---------------------------------------------------------------------------
+# Offline multi-frame carve (kernel K4)
+# ---------------------------------------------------------------------------
+
+
+def carve_frames_kernel(pk, active, full, masks, *, views_threshold: int):
+    """Kernel K4: blocked tables + chunk-wide flags + (NF, C, H, W) u8 masks
+    → occupancy (NF, nsuper, nsub, BV) u8 0/1, frame-major.
+
+    CUDA tensors launch ``csrc/carve_frames.cu``; CPU tensors run
+    :func:`carve_frames_plain`."""
+    if pk.device.type == "cpu":
+        return carve_frames_plain(pk, active, full, masks,
+                                  views_threshold=views_threshold)
+    if pk.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pk.device}")
+    nsuper, nsub, C, _ = pk.shape
+    NF, _, H, W = masks.shape
+    dev = pk.device
+    nblk = nsuper * nsub
+    check(pk, "pk", torch.int32, (nsuper, nsub, C, BV), dev)
+    check(active, "active", torch.int32, (nblk,), dev)
+    check(full, "full", torch.int32, (nblk,), dev)
+    check(masks, "masks", torch.uint8, (NF, C, H, W), dev)
+    occ = torch.empty((NF, nsuper, nsub, BV), dtype=torch.uint8, device=dev)
+    K4.launch(ptr(pk), ptr(active), ptr(full), ptr(masks), ptr(occ), nblk,
+              NF, C, H, W, int(views_threshold))
+    return occ
+
+
+def carve_frames_plain(pk, active, full, masks, *, views_threshold: int):
+    """Plain PyTorch version of K4 (any device; the wrapper uses it for
+    CPU tensors only)."""
+    nsuper, nsub, C, _ = pk.shape
+    NF, _, H, W = masks.shape
+    row = pk >> 10
+    x = ((pk >> 3) & 127) * WORD_BITS + (pk & 7)
+    valid = row != INVALID_ROW
+    lin = torch.where(valid, row * W + x, 0).long()
+    fg = masks.reshape(NF, C, -1) > 0
+    count = torch.zeros((NF, nsuper, nsub, BV), dtype=torch.int32,
+                        device=pk.device)
+    for c in range(C):
+        count += (valid[:, :, c] & fg[:, c][:, lin[:, :, c]]).to(torch.int32)
+    act = active.reshape(nsuper, nsub, 1) > 0
+    is_full = full.reshape(nsuper, nsub, 1) > 0
+    count = torch.where(is_full, C, count)
+    return (act & (count >= views_threshold)).to(torch.uint8)
+
+
+def _carve_frames_device(masks: torch.Tensor, tables: BlockTables, *,
+                         views_threshold: int) -> torch.Tensor:
+    """One launch over a chunk: (NF, C, H, W) u8 masks → (NF, N) bool
+    canonical occupancy.  A block is active when the UNION of the frames'
+    foreground could reach the view threshold in its footprint, and full
+    only when their INTERSECTION is entirely foreground (then every
+    frame's count is C for every voxel)."""
+    NF = masks.shape[0]
+    active, _ = block_activity(masks.amax(dim=0), views_threshold,
+                               tables.allv, tables.ry, tables.rx)
+    _, full = block_activity(masks.amin(dim=0), views_threshold,
+                             tables.allv, tables.ry, tables.rx)
+    occ_b = carve_frames_kernel(tables.pk, active, full, masks.contiguous(),
+                                views_threshold=views_threshold)
+    nsuper, nsub = tables.nsuper, tables.nsub
+    occ = _blocked_to_canonical(
+        occ_b.reshape(NF, nsuper, nsub * BV).permute(1, 2, 0),
+        tables.sub_shape, tables.sup_shape, tables.nblocks)  # (N, NF)
+    return occ.t().bool()
+
+
+def carve_frames_blocked(masks: torch.Tensor, tables: BlockTables, *,
+                         views_threshold: int = 4,
+                         frames_per_launch: int = 8) -> torch.Tensor:
+    """Offline multi-frame carve: (F, C, H, W) u8 masks → canonical
+    per-frame occupancy (F, N) bool, each frame equal to
+    ``carve.carve_from_tables``.  ``frames_per_launch`` frames go through
+    one launch; the last chunk is padded with all-background frames, whose
+    outputs are dropped.  Colours are not computed here: an offline
+    consumer holds the frames on the host and gathers the occupied voxels'
+    colours there (:func:`frame_colors_host`)."""
+    F = masks.shape[0]
+    NF = int(frames_per_launch)
+    pad = (-F) % NF
+    if pad:
+        masks = torch.cat([masks, masks.new_zeros((pad,) + masks.shape[1:])])
+    occ_chunks = [
+        _carve_frames_device(masks[start:start + NF], tables,
+                             views_threshold=views_threshold)
+        for start in range(0, F + pad, NF)
+    ]
+    return torch.cat(occ_chunks)[:F]
+
+
+def frame_colors_host(occ: np.ndarray, image: np.ndarray,
+                      lin_idx: np.ndarray, color_camera: int = 1):
+    """Host colour gather at one frame's occupied voxels: canonical ``occ``
+    (N,) bool, the colour camera's (H, W, 3) u8 frame and the table path's
+    ``lin_idx`` (C, N) → (idx (M,), col (M, 3))."""
+    idx = np.flatnonzero(to_host(occ))
+    li = to_host(lin_idx[color_camera])[idx]
+    return idx, to_host(image).reshape(-1, 3)[li]
 
 
 def canonicalize_host(x_blocked, tables: BlockTables) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Combined-phase connected-component labelling (kernel K2).
+"""Connected-component labelling: combined-phase (kernel K2) and
+single-phase (kernel K5).
 
 Counterpart of ``vbr_tpu/ops/ccl_pallas.py::label_components_combined``:
 8-connected labels of BOTH phases of each padded binary image in one
@@ -7,6 +8,11 @@ own-phase component, capped at ``max_iters`` iterations exactly like the
 TPU kernel.  On a CUDA tensor the hand-written kernel
 ``csrc/ccl_combined.cu`` runs; on a CPU tensor the plain PyTorch version
 below (the same iteration, written with Hillis–Steele segmented scans).
+
+``label_components_batched`` is the counterpart of
+``ccl_pallas.py::label_components_batched``: foreground only, background =
+2³⁰, its own iteration (all 8 neighbours, then scans segmented on the
+foreground runs) with the same cap; kernel ``csrc/ccl_label.cu``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,12 @@ K2 = CudaKernel(
     "ccl_combined.cu", "vbr_ccl_combined",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
+K5 = CudaKernel(
+    "ccl_label.cu", "vbr_ccl_label",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+_NEIGHBOURS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                    if (dy, dx) != (0, 0))
 
 
 def label_components_combined(phase: torch.Tensor, max_iters: int = 64):
@@ -99,6 +111,58 @@ def label_components_combined_plain(phase: torch.Tensor, max_iters: int = 64):
         for dim in (2, 1):  # rows, then columns; forward, then reverse
             for rev in (False, True):
                 l2 = _seg_min_scan(l2, resets[(dim, rev)], dim, rev)
+        changed = (l2 != labels).flatten(1).any(dim=1)
+        iters += active.to(torch.int32)
+        active &= changed
+        labels = l2  # a converged image is a fixpoint: l2 == labels there
+        if not bool(active.any()):
+            break
+    return labels, iters
+
+
+def label_components_batched(fg: torch.Tensor, max_iters: int = 64):
+    """(B, Hp, Wp) 0/1 foreground (Hp % 8 == 0, Wp % 128 == 0) →
+    (labels (B, Hp, Wp) i32: min padded linear index of the pixel's
+    8-connected foreground component, 2³⁰ on the background; iterations
+    run (B,) i32)."""
+    B, H, W = fg.shape
+    if H % 8 or W % 128:
+        raise ValueError("padded image dims must be multiples of (8, 128)")
+    fg = fg.to(torch.int32).contiguous()
+    if fg.device.type == "cpu":
+        return label_components_batched_plain(fg, max_iters)
+    if fg.device.type != "cuda":
+        raise ValueError(f"no kernel for device {fg.device}")
+    check(fg, "fg", torch.int32, (B, H, W), fg.device)
+    labels = torch.empty_like(fg)
+    scratch = torch.empty_like(fg)
+    iters = torch.empty(B, dtype=torch.int32, device=fg.device)
+    K5.launch(ptr(fg), ptr(labels), ptr(scratch), ptr(iters),
+              B, H, W, int(max_iters))
+    return labels, iters
+
+
+def label_components_batched_plain(fg: torch.Tensor, max_iters: int = 64):
+    """Plain PyTorch version of K5 (any device; the wrapper uses it for
+    CPU tensors only)."""
+    B, H, W = fg.shape
+    fg = fg.to(torch.int32)
+    is_fg = fg > 0
+    reset = 1 - fg
+    lin = torch.arange(H * W, dtype=torch.int32, device=fg.device)
+    big = torch.full((), BIG, dtype=torch.int32, device=fg.device)
+    labels = torch.where(is_fg, lin.reshape(1, H, W), big)
+    iters = torch.zeros(B, dtype=torch.int32, device=fg.device)
+    active = torch.ones(B, dtype=torch.bool, device=fg.device)
+    for _ in range(max_iters):
+        nm = labels
+        for dy, dx in _NEIGHBOURS:
+            nm = torch.minimum(nm, _shift(_shift(labels, dy, 1, BIG), dx, 2,
+                                          BIG))
+        l2 = torch.where(is_fg, nm, big)
+        for dim in (2, 1):  # rows, then columns; forward, then reverse
+            for rev in (False, True):
+                l2 = _seg_min_scan(l2, reset, dim, rev)
         changed = (l2 != labels).flatten(1).any(dim=1)
         iters += active.to(torch.int32)
         active &= changed

@@ -1,10 +1,14 @@
-"""Frozen mixture-of-Gaussians background apply.
+"""Mixture-of-Gaussians background model: frozen apply and MOG training.
 
-Counterpart of the apply side of ``vbr_tpu/ops/gmm.py``: ``MOGState``
-(schema 2: ``var`` is the per-mixture total variance Σv, slots in OpenCV
-storage order), ``apply_frozen`` (the full-state reference), and the
-prefix compression ``compress_frozen`` + ``apply_frozen_compressed`` that
-the per-frame step runs.  Training (and its kernel) is not ported yet.
+Counterpart of ``vbr_tpu/ops/gmm.py``.  Apply side: ``MOGState`` (schema 2:
+``var`` is the per-mixture total variance Σv, slots in OpenCV storage
+order), ``apply_frozen`` (the full-state reference), and the prefix
+compression ``compress_frozen`` + ``apply_frozen_compressed`` that the
+per-frame step runs.  Train side: ``MOGTrainState`` (pixel axis minor),
+the OpenCV-exact per-frame update ``_update_arrays``, the multi-frame loop
+``_train_chunk``, kernel K3 (``train_chunk_kernel``: a whole chunk of
+frames per launch, ``csrc/mog_train.cu``) and ``train_mog``.  MOG2 and KNN
+training are not ported yet.
 
 The compressed apply is exact: a pixel is background iff some slot
 j < B = min(n_lead, k_fg) matches (‖x − μⱼ‖² < 6.25·Σvⱼ), so only the
@@ -15,14 +19,29 @@ uses, so the per-pixel bound B does not depend on a device's scan order.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from vbr_tpu_torch.ops import color as color_ops
+from vbr_tpu_torch.ops._cuda import CudaKernel, check, ptr
 from vbr_tpu_torch.utils.config import MOGParams
+from vbr_tpu_torch.utils.device import resolve_device
 
 FLT_EPSILON = np.float32(1.1920929e-07)
+INITIAL_WEIGHT = 0.05  # OpenCV defaultInitialWeight
+DEFAULT_NOISE_SIGMA = 15.0  # OpenCV bgsegm defaultNoiseSigma = 30·0.5
+
+# -fmad=false: the update rounds after every multiply and add, as the JAX
+# package does; a fused multiply-add would change the last bit.
+K3 = CudaKernel(
+    "mog_train.cu", "vbr_mog_train",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_void_p],
+    extra_flags=("-fmad=false",),
+)
 
 
 class MOGState(NamedTuple):
@@ -111,3 +130,281 @@ def apply_frozen_compressed(fz: FrozenMOGState,
     k_idx = torch.arange(fz.thr.shape[-1], device=fz.thr.device)
     matched = (k_idx < fz.bcount[..., None]) & (_match_d2(x, fz.mean) < fz.thr)
     return torch.where(matched.any(dim=-1), 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+class MOGTrainState(NamedTuple):
+    """Training-time state, pixel axis minor (coalesced across pixels).
+
+    Mirrors OpenCV's MixData fields including the *stored* sort key, which
+    is refreshed only on a match and rescaled with the weights every frame.
+    """
+
+    weight: torch.Tensor  # (K, HW) f32
+    sort_key: torch.Tensor  # (K, HW) f32
+    mean: torch.Tensor  # (3, K, HW) f32
+    var: torch.Tensor  # (3, K, HW) f32 — per-channel variance
+    nframes: torch.Tensor  # () int32
+
+
+def init_state(shape_hw, params: MOGParams, device="cpu") -> MOGState:
+    H, W = shape_hw
+    K = params.n_mixtures
+    return MOGState(
+        weight=torch.zeros((H, W, K), dtype=torch.float32, device=device),
+        mean=torch.zeros((H, W, K, 3), dtype=torch.float32, device=device),
+        var=torch.zeros((H, W, K), dtype=torch.float32, device=device),
+        nframes=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_train_state(shape_hw, params: MOGParams,
+                     device="cpu") -> MOGTrainState:
+    H, W = shape_hw
+    K = params.n_mixtures
+    hw = H * W
+    return MOGTrainState(
+        weight=torch.zeros((K, hw), dtype=torch.float32, device=device),
+        sort_key=torch.zeros((K, hw), dtype=torch.float32, device=device),
+        mean=torch.zeros((3, K, hw), dtype=torch.float32, device=device),
+        var=torch.zeros((3, K, hw), dtype=torch.float32, device=device),
+        nframes=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _shift_down(arr: torch.Tensor, k_axis: int) -> torch.Tensor:
+    """out[..., j, ...] = arr[..., j-1, ...] along the K axis (j=0 dup)."""
+    K = arr.shape[k_axis]
+    return torch.cat([arr.narrow(k_axis, 0, 1), arr.narrow(k_axis, 0, K - 1)],
+                     dim=k_axis)
+
+
+def _sum_slots(w: torch.Tensor) -> torch.Tensor:
+    """Σ over the K axis, slot 0 … K−1 in order: the order OpenCV and the
+    kernel use, independent of a device's reduction tree."""
+    s = w[0]
+    for k in range(1, w.shape[0]):
+        s = s + w[k]
+    return s
+
+
+def _update_arrays(w, key_s, mu, var, x, alpha, params: MOGParams,
+                   compute_fg: bool = True):
+    """The OpenCV-exact (bgsegm MOG) per-frame mixture update.
+
+    Shapes: w/key_s (K, P), mu/var (3, K, P), x (3, P) f32, alpha a 0-dim
+    f32 tensor.  Returns (w, key, mu, var, fg (P,) bool or None).  Every
+    multiply and add is its own rounded float32 operation (no ``addcmul``,
+    ``lerp`` or ``rsqrt``), so the result does not depend on the device,
+    and the kernel (built without fused multiply-add) equals it bit for
+    bit.  The sort key is ``w / sqrt(Σv)`` in IEEE arithmetic, as OpenCV
+    computes it.
+    """
+    K = w.shape[0]
+    k_idx = torch.arange(K, device=w.device).reshape(K, 1)
+
+    # OpenCV walks the slots in order and breaks at the first
+    # w < FLT_EPSILON: only the leading valid prefix can match.
+    invalid = w < float(FLT_EPSILON)
+    n_lead_valid = torch.where(invalid, k_idx, K).amin(dim=0)  # (P,)
+    in_prefix = k_idx < n_lead_valid
+
+    diff = x[:, None, :] - mu  # (3, K, P)
+    d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
+    varsum = (var[0] + var[1]) + var[2]  # (K, P)
+    vt = float(np.float32(params.match_sigma**2))
+    matched = in_prefix & (d2 < vt * varsum)
+    any_match = matched.any(dim=0)  # (P,)
+    c = torch.where(matched, k_idx, K).amin(dim=0)  # first match; 0 if none
+    c = torch.where(any_match, c, 0)
+
+    # the matched slot's update, computed dense and picked at c
+    min_var = float(np.float32(params.noise_sigma**2))
+    w_upd = w + alpha * (1.0 - w)
+    mu_upd = mu + alpha * diff
+    var_upd = torch.clamp_min(var + alpha * (diff * diff - var), min_var)
+    # NEW weight over sqrt(OLD Σvar): the C++ reuses the Σvar of the match
+    # gate in the sort key's denominator
+    key_upd = w_upd / torch.sqrt(varsum)
+    c1 = c[None]
+    val_w = torch.gather(w_upd, 0, c1)[0]
+    val_key = torch.gather(key_upd, 0, c1)[0]
+    c3 = c1.expand(3, -1)[:, None]
+    val_mu = torch.gather(mu_upd, 1, c3)[:, 0]  # (3, P)
+    val_var = torch.gather(var_upd, 1, c3)[:, 0]
+
+    # single-element upward bubble: the updated slot moves to p = (largest
+    # j < c whose stored key >= its new key) + 1; slots p … c−1 move down
+    blocker = (k_idx < c) & (key_s >= val_key)
+    p = torch.where(blocker, k_idx + 1, 0).amax(dim=0)  # (P,)
+
+    at_p = (k_idx == p) & any_match  # (K, P): broadcasts over channels
+    shifted = (k_idx > p) & (k_idx <= c) & any_match
+
+    def bubble(arr, val, k_axis):
+        return torch.where(
+            at_p, val.unsqueeze(k_axis),
+            torch.where(shifted, _shift_down(arr, k_axis), arr))
+
+    w2 = bubble(w, val_w, 0)
+    key2 = bubble(key_s, val_key, 0)
+    mu2 = bubble(mu, val_mu, 1)
+    var2 = bubble(var, val_var, 1)
+
+    # no match: the slot at the break position (first empty, else the last)
+    # becomes a fresh mode; var0/sk0 use the DEFAULT noise sigma
+    w0 = float(np.float32(INITIAL_WEIGHT))
+    var0 = float(np.float32(4.0 * DEFAULT_NOISE_SIGMA**2))
+    sk0 = float(np.float32(INITIAL_WEIGHT / (2.0 * DEFAULT_NOISE_SIGMA)))
+    r = torch.clamp_max(n_lead_valid, K - 1)  # (P,)
+    repl = ~any_match & (k_idx == r)
+    w3 = torch.where(repl, w0, w2)
+    key3 = torch.where(repl, sk0, key2)
+    mu3 = torch.where(repl[None], x[:, None, :], mu2)
+    var3 = torch.where(repl[None], var0, var2)
+
+    # weights AND sort keys are rescaled by 1/Σw every training frame
+    total = _sum_slots(w3)
+    wscale = torch.ones_like(total) / total
+    w4 = w3 * wscale
+    key4 = key3 * wscale
+    if not compute_fg:
+        return w4, key4, mu3, var3, None
+
+    # training-mode mask: PRE-bubble hit index vs kForeground
+    k_hit = torch.where(any_match, c, r)
+    cumw = [w4[0]]  # slot by slot, like the Σw above
+    for k in range(1, K):
+        cumw.append(cumw[-1] + w4[k])
+    over = torch.stack(cumw) > float(np.float32(params.bg_ratio))
+    # kForeground stays -1 when the cumulative weight never exceeds the
+    # ratio, which makes everything foreground: k_fg = 0
+    k_fg = torch.where(over.any(dim=0),
+                       torch.where(over, k_idx, K).amin(dim=0) + 1, 0)
+    return w4, key4, mu3, var3, k_hit >= k_fg
+
+
+def _train_step(state: MOGTrainState, x: torch.Tensor, params: MOGParams,
+                compute_fg: bool = True):
+    """One training step on ``x`` (3, HW) f32 (already colour-converted),
+    learning rate 1 / min(nframes, history) (IEEE division).  Returns
+    (new_state, fg (HW,) bool — the mask OpenCV's apply() would emit
+    during training — or None without ``compute_fg``)."""
+    nframes = state.nframes + 1
+    n = torch.clamp_max(nframes, int(params.history)).to(torch.float32)
+    w, key, mu, var, fg = _update_arrays(
+        state.weight, state.sort_key, state.mean, state.var, x,
+        torch.ones_like(n) / n, params, compute_fg)
+    return MOGTrainState(w, key, mu, var, nframes), fg
+
+
+def finalize_train_state(ts: MOGTrainState, shape_hw,
+                         params: MOGParams) -> MOGState:
+    """Training layout → apply-facing ``MOGState`` (Σvar, (H, W, K))."""
+    H, W = shape_hw
+    K = ts.weight.shape[0]
+    varsum = (ts.var[0] + ts.var[1]) + ts.var[2]  # (K, HW)
+    return MOGState(
+        weight=ts.weight.t().reshape(H, W, K).contiguous(),
+        mean=ts.mean.permute(2, 1, 0).reshape(H, W, K, 3).contiguous(),
+        var=varsum.t().reshape(H, W, K).contiguous(),
+        nframes=ts.nframes,
+    )
+
+
+def _train_chunk(state: MOGTrainState, frames_conv: torch.Tensor,
+                 params: MOGParams, emit_masks: bool = False):
+    """The plain multi-frame loop: T steps of :func:`_train_step` over
+    ``frames_conv`` (T, H, W, 3) u8, already colour-converted.  Returns
+    (state, training masks (T, H, W) u8 {0, 255} or None)."""
+    T, H, W, _ = frames_conv.shape
+    xs = frames_conv.reshape(T, H * W, 3).to(torch.float32).permute(0, 2, 1)
+    masks = []
+    for t in range(T):
+        state, fg = _train_step(state, xs[t], params, compute_fg=emit_masks)
+        if emit_masks:
+            masks.append(torch.where(fg, 255, 0).to(torch.uint8))
+    return state, (torch.stack(masks).reshape(T, H, W) if emit_masks
+                   else None)
+
+
+def train_chunk_plain(state: MOGTrainState, frames_conv: torch.Tensor,
+                      params: MOGParams) -> MOGTrainState:
+    """Plain PyTorch version of K3 (any device; the wrapper uses it for
+    CPU tensors only)."""
+    return _train_chunk(state, frames_conv, params)[0]
+
+
+def train_chunk_kernel(state: MOGTrainState, frames_conv: torch.Tensor,
+                       params: MOGParams) -> MOGTrainState:
+    """Kernel K3: T frames of the MOG update in one launch, no masks.
+
+    ``frames_conv`` (T, H, W, 3) u8, already colour-converted.  CUDA
+    tensors launch ``csrc/mog_train.cu``, which updates the four state
+    arrays IN PLACE (the returned state shares them); CPU tensors run
+    :func:`train_chunk_plain`, which allocates new ones."""
+    dev = state.weight.device
+    if dev.type == "cpu":
+        return train_chunk_plain(state, frames_conv, params)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    T, H, W, _ = frames_conv.shape
+    K, hw = state.weight.shape
+    check(frames_conv, "frames_conv", torch.uint8, (T, H, W, 3), dev)
+    check(state.weight, "weight", torch.float32, (K, H * W), dev)
+    check(state.sort_key, "sort_key", torch.float32, (K, hw), dev)
+    check(state.mean, "mean", torch.float32, (3, K, hw), dev)
+    check(state.var, "var", torch.float32, (3, K, hw), dev)
+    check(state.nframes, "nframes", torch.int32, (), dev)
+    K3.launch(ptr(frames_conv), ptr(state.weight), ptr(state.sort_key),
+              ptr(state.mean), ptr(state.var), ptr(state.nframes),
+              T, K, hw, int(params.history),
+              float(np.float32(params.match_sigma**2)),
+              float(np.float32(params.noise_sigma**2)))
+    return state._replace(nframes=state.nframes + T)
+
+
+def train_mog(frames, params: MOGParams = MOGParams(), chunk: int = 16,
+              return_masks: bool = False, device="cuda"):
+    """Train a MOG model over a frame sequence (T, H, W, 3) u8 BGR:
+    sequential frames, learning rate 1/min(n, history), optional BGR→HSV.
+
+    Frames go to ``device`` in ``chunk``-frame pieces; each piece is one
+    launch of kernel K3 on a CUDA device.  The kernel emits no per-frame
+    masks, so ``return_masks=True`` runs the plain step on ``device``
+    instead.  Returns the apply-facing :class:`MOGState`; with
+    ``return_masks`` also the training masks (what OpenCV's apply() emits
+    during training) as a (T, H, W) u8 numpy array.
+    """
+    dev = resolve_device(device)
+    T, H, W, _ = frames.shape
+    state = init_train_state((H, W), params, dev)
+    mask_parts = []
+    for start in range(0, T, chunk):
+        part = torch.as_tensor(np.ascontiguousarray(frames[start:start + chunk]),
+                               dtype=torch.uint8).to(dev)
+        if params.use_hsv:
+            part = color_ops.bgr_to_hsv_u8(part)
+        if return_masks:
+            state, masks = _train_chunk(state, part, params, True)
+            mask_parts.append(masks.cpu().numpy())
+        else:
+            state = train_chunk_kernel(state, part.contiguous(), params)
+    final = finalize_train_state(state, (H, W), params)
+    if return_masks:
+        return final, np.concatenate(mask_parts, axis=0)
+    return final
+
+
+def extract_mask(state: MOGState, frame,
+                 params: MOGParams = MOGParams()) -> torch.Tensor:
+    """Frozen-model raw foreground mask for a (H, W, 3) u8 BGR frame, on
+    the state's device."""
+    frame_d = torch.as_tensor(frame, dtype=torch.uint8).to(state.weight.device)
+    if params.use_hsv:
+        frame_d = color_ops.bgr_to_hsv_u8(frame_d)
+    return apply_frozen(state, frame_d, params)

@@ -1,6 +1,9 @@
-"""Batched mask stages of the per-frame step (all cameras at once).
+"""Background training and the batched mask stages of the per-frame step
+(all cameras at once).
 
-Counterpart of ``vbr_tpu/pipelines/background.py``: ``stack_frozen``
+Counterpart of ``vbr_tpu/pipelines/background.py``:
+``train_background_model`` (MOG training over a background sequence),
+``stack_states``, ``stack_frozen``
 (per-camera states → one prefix-compressed stacked state),
 ``raw_masks_batched_fz`` (HSV + compressed frozen apply + per-camera
 pre-morphology) and ``finalize_masks_batched`` (per-camera
@@ -12,11 +15,30 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from vbr_tpu_torch.ops import color as color_ops
 from vbr_tpu_torch.ops import gmm, morphology
 from vbr_tpu_torch.utils.config import MOGParams
+
+
+def train_background_model(background_frames: np.ndarray,
+                           params: MOGParams = MOGParams(),
+                           device="cuda") -> gmm.MOGState:
+    """Train the production MOG model (HSV, learning rate 1/min(n,
+    history)) over (T, H, W, 3) u8 BGR frames on ``device``."""
+    return gmm.train_mog(background_frames, params, device=device)
+
+
+def stack_states(states: Sequence[gmm.MOGState]) -> gmm.MOGState:
+    """Stack per-camera MOG states along a leading camera axis."""
+    return gmm.MOGState(
+        weight=torch.stack([s.weight for s in states]),
+        mean=torch.stack([s.mean for s in states]),
+        var=torch.stack([s.var for s in states]),
+        nframes=torch.stack([s.nframes for s in states]),
+    )
 
 
 def stack_frozen(states: Sequence[gmm.MOGState], params: MOGParams,

@@ -3,7 +3,9 @@
 Counterpart of ``vbr_tpu/utils/artifacts.py::save_mog_state`` /
 ``load_mog_state``: the same keys (weight, mean, var, nframes, schema=2),
 so a model trained and saved by ``vbr_tpu`` loads into the port and back.
-``from_numpy_state`` takes such a state as numpy arrays directly.
+``from_numpy_state`` takes such a state as numpy arrays directly, and
+``train_state_from_numpy`` / ``train_state_to_numpy`` carry a mid-training
+``MOGTrainState`` across, so both packages can go on from the same state.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from vbr_tpu_torch.ops.gmm import MOGState
+from vbr_tpu_torch.ops.gmm import MOGState, MOGTrainState
 
 
 def from_numpy_state(state, device="cpu") -> MOGState:
@@ -31,6 +33,34 @@ def from_numpy_state(state, device="cpu") -> MOGState:
         var=f32(state.var),
         nframes=torch.tensor(int(np.asarray(state.nframes)),
                              dtype=torch.int32, device=device),
+    )
+
+
+def train_state_from_numpy(state, device="cpu") -> MOGTrainState:
+    """Any object with ``weight``/``sort_key``/``mean``/``var``/``nframes``
+    array attributes in the training layout ((K, HW) / (3, K, HW); e.g.
+    the JAX package's ``MOGTrainState`` after ``np.asarray``) → the port's
+    ``MOGTrainState`` on ``device``."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    return MOGTrainState(
+        weight=f32(state.weight), sort_key=f32(state.sort_key),
+        mean=f32(state.mean), var=f32(state.var),
+        nframes=torch.tensor(int(np.asarray(state.nframes)),
+                             dtype=torch.int32, device=device),
+    )
+
+
+def train_state_to_numpy(state: MOGTrainState) -> SimpleNamespace:
+    """The port's ``MOGTrainState`` as numpy arrays under the same field
+    names (``nframes`` an int32 scalar), ready for the JAX package's
+    ``MOGTrainState(**vars(...))``."""
+    return SimpleNamespace(
+        weight=state.weight.cpu().numpy(),
+        sort_key=state.sort_key.cpu().numpy(),
+        mean=state.mean.cpu().numpy(), var=state.var.cpu().numpy(),
+        nframes=np.int32(int(state.nframes)),
     )
 
 
