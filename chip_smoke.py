@@ -13,6 +13,16 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      outputs bit-equal, times, active fraction and bound;
   4. K2 (combined-phase labelling) against its plain version on the raw
      masks of the main-path frame: labels bit-equal, iterations, times;
+     then, labels and iteration counts bit-equal again, on inputs that
+     reach what that frame does not: a serpentine corridor cut short by the
+     ``max_iters`` cap and the same corridor run to its fixpoint, the
+     corridor turned upright (labels travel along the columns, through the
+     carry fold across the bands, for many iterations), a dense random
+     image, an image in which the two column sweeps of one iteration meet
+     inside every band, a checkerboard, components that cross every band seam of
+     the cluster route, a batch of 32 images with differing iteration
+     counts, a shape too large for the cluster route and a small one; the
+     kernel is run several times on each; the route each took;
   5. the main path, ``VisualHull.process_frame_fast``, on the card and on
      the CPU: occupancy and colours bit-equal; the launch counters of K1
      and K2 advance;
@@ -34,7 +44,8 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      frames on the trained model: per-frame occupancy and colours equal to
      ``process_frame_fast``; K4 launches counted, ms/frame;
  13. K5 (single-phase labelling) on the foreground of the main-path
-     frame, against its plain version: labels and iterations equal, times.
+     frame, against its plain version: labels and iterations equal, times;
+     then the inputs of phase 4 again.
 
 It prints one JSON line of per-kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -58,8 +69,11 @@ TRAIN_CHUNK = 16  # frames per K3 launch (``train_mog``'s default)
 OFFLINE_NF = 8  # frames per K4 launch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-K2_OPS_PER_PIXEL_ITER = 17  # 4 diag compare+min, 4 scans × (compare+min), 1 change test
-K5_OPS_PER_PIXEL_ITER = 18  # 8 neighbour min, fg select, 4 scans × (select+min), 1 change test
+# the change test is a compare inside each of the 5 passes
+K2_OPS_PER_PIXEL_ITER = 21  # 4 diag compare+min, 4 scans × (compare+min), 5 change tests
+K5_OPS_PER_PIXEL_ITER = 22  # 8 neighbour min, fg select, 4 scans × (select+min), 5 change tests
+LABEL_CAP = 64  # ``max_iters`` of both labelling kernels in the pipeline
+KERNEL_RERUNS = 5  # runs of a labelling kernel on each of its test images
 
 
 class Failed(Exception):
@@ -193,13 +207,150 @@ def train_state_from_mog(state, torch, nframes):
         nframes=torch.tensor(nframes, dtype=torch.int32))
 
 
+def serpentine(H, W):
+    """Every other row set, joined alternately at its right and left end:
+    one corridor that the labelling fixpoint walks about two rows per
+    iteration, so a tall one outlasts the iteration cap."""
+    m = np.zeros((H, W), bool)
+    m[::2] = True
+    m[1::4, W - 1] = True
+    m[3::4, 0] = True
+    return m
+
+
+def seam_images(H, W, bands=8):
+    """(3, H, W): 1-px diagonal stripes in both directions, which cross
+    every row seam diagonally, and columns that change phase exactly at
+    the seams of ``bands`` equal bands of rows (every third column changes
+    one row later, every fifth never)."""
+    yy, xx = np.mgrid[:H, :W]
+    R = max(H // bands, 1)
+    cols = ((yy - (xx % 3 == 1)) // R) % 2 == 0
+    cols[:, ::5] = True
+    return np.stack([(yy + xx) % 4 == 0, (yy - xx) % 4 == 0, cols])
+
+
+def crossing_sweeps(H, W, bands=8):
+    """A block of columns 32-127 that each band of rows of ``bands`` reaches
+    a second way: a spur from the band's last row to an upright spine whose
+    label is lower the lower the band.  In the second iteration every band's
+    column scans then meet in the block: the carry from the band above
+    comes down while the lower label from the band's last row goes up.
+    Columns 0-31 have nothing to carry."""
+    R = H // bands
+    m = np.zeros((H, W), bool)
+    m[2 * bands + 4:, 32:128] = True
+    for b in range(bands):
+        last, spine = (b + 1) * R - 1, 160 + 4 * b
+        m[last, 128:spine + 1] = True
+        m[2 * (bands - b):last + 1, spine] = True
+    return m
+
+
+def mixed_batch(rng, B, H, W):
+    """(B, H, W): image i holds a serpentine over its first 4 + 3·i rows
+    (so the iteration counts differ) above sparse seeded noise."""
+    out = rng.random((B, H, W)) < 0.1
+    for i in range(B):
+        rows = min(4 + 3 * i, H)
+        out[i, :rows] = serpentine(rows, W)
+        if rows < H:
+            out[i, rows] = False
+    return out
+
+
+def per_iteration_us(torch, dev, fn, Hp, Wp, caps=(16, 48)):
+    """µs per iteration of a labelling function on the serpentine at the
+    production shape: the difference of two iteration caps it outlasts."""
+    cor = torch.from_numpy(serpentine(Hp, Wp)[None]).to(dev)
+    lo, hi = (timed_ms(lambda: fn(cor, max_iters=c), torch, dev, reps=9)
+              for c in caps)
+    return (hi - lo) * 1e3 / (caps[1] - caps[0])
+
+
+def hold_labelling(torch, dev, name, kernel, fn, plain, large_hw, batch,
+                   cap, Hp, Wp):
+    """Hold a labelling kernel against its plain version, labels and
+    iteration counts bit-equal, on the inputs the production frame does
+    not reach; returns the largest difference seen."""
+    from vbr_tpu_torch.ops import ccl_label
+
+    rng = np.random.default_rng(SEED + 7)
+    yy, xx = np.mgrid[:Hp, :Wp]
+    corridor = serpentine(Hp, Wp)[None]
+    # upright over a third of the width, which already outlasts the cap
+    upright = np.zeros((1, Hp, Wp), bool)
+    upright[0, :, :Wp // 3] = serpentine(Wp // 3, Hp).T
+    cases = [
+        ("corridor at the cap", corridor, cap),
+        ("corridor to its fixpoint", corridor, 4 * Hp),
+        ("upright corridor at the cap", upright, cap),
+        ("upright corridor to its fixpoint", upright, 4 * Wp),
+        ("dense random image", rng.random((1, Hp, Wp)) < 0.6, 2 * cap),
+        ("crossing column sweeps, 2 iterations",
+         crossing_sweeps(Hp, Wp)[None], 2),
+        ("crossing column sweeps", crossing_sweeps(Hp, Wp)[None], cap),
+        ("checkerboard", ((yy + xx) % 2 == 0)[None], cap),
+        ("band seams", seam_images(Hp, Wp), cap),
+        (f"batch of {batch}", mixed_batch(rng, batch, Hp, Wp), cap),
+        ("too large for a cluster",
+         rng.random((1, *large_hw)) < 0.2, cap),
+        ("small", rng.random((1, 8, 128)) < 0.3, cap),
+    ]
+    worst = 0.0
+    kept = {}
+    for what, img, max_iters in cases:
+        img_d = torch.from_numpy(img).to(dev)
+        want, it_want = plain(img_d, max_iters=max_iters)
+        route = (ccl_label.kernel_route(kernel, *img.shape[1:])
+                 if dev.type == "cuda" else {"route": "plain (CPU)"})
+        # the result must not depend on how the threads of a cluster
+        # interleave
+        for _ in range(KERNEL_RERUNS if route["route"] == "cluster" else 1):
+            got, it = fn(img_d, max_iters=max_iters)
+            sync(torch, dev)
+            worst = max(worst, max_abs_err([(got, want), (it, it_want)]))
+            if not (torch.equal(got, want) and torch.equal(it, it_want)):
+                raise Failed(f"{name} {what} {tuple(img.shape)}: differs "
+                             f"from the plain version; iterations "
+                             f"{it.tolist()} against {it_want.tolist()}")
+        its = it.tolist()
+        shown = its if len(its) <= 4 else sorted(set(its))
+        print(f"  ok: {name} {what} {tuple(img.shape)}: labels and "
+              f"iterations bit-equal; iterations {shown}; route {route}",
+              flush=True)
+        kept[what] = (got, its, route)
+    capped, full = kept["corridor at the cap"], kept["corridor to its fixpoint"]
+    expect(capped[1] == [cap] and cap < full[1][0] < 4 * Hp
+           and not torch.equal(capped[0], full[0]),
+           f"{name}: the cap cut the corridor short at {cap} iterations "
+           f"(fixpoint after {full[1][0]}), and the labels differ")
+    capped, full = (kept["upright corridor at the cap"],
+                    kept["upright corridor to its fixpoint"])
+    expect(capped[1] == [cap] and cap < full[1][0] < 4 * Wp
+           and not torch.equal(capped[0], full[0]),
+           f"{name}: the cap cut the upright corridor short too (fixpoint "
+           f"after {full[1][0]})")
+    expect(len(set(kept[f"batch of {batch}"][1])) > 2,
+           f"{name}: iteration counts differ within the batch")
+    if dev.type == "cuda":
+        expect(kept["too large for a cluster"][2]["route"] == "general"
+               and kept["small"][2]["cluster"] == 1
+               and kept[f"batch of {batch}"][2]["route"] == "cluster",
+               f"{name}: the large shape took the general route, the small "
+               "one a cluster of 1, the batch the cluster route")
+    return worst
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
-        mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK):
+        mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
+        label_large_hw=(1088, 1920), label_cap=LABEL_CAP):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
-    on ``train_frames`` background frames per camera; returns the
-    per-kernel report."""
+    on ``train_frames`` background frames per camera, and holding the
+    labelling kernels at the cap ``label_cap`` and on a ``label_large_hw``
+    image besides; returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -262,8 +413,8 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                                           model.mask_params)
     masks = model.masks(frame0_d)
     Hp, Wp = -(-H // 8) * 8, -(-W // 128) * 128
-    phase = torch.zeros((len(cams), Hp, Wp), dtype=torch.int32, device=dev)
-    phase[:, :H, :W] = (raw > 0).to(torch.int32)
+    phase = torch.zeros((len(cams), Hp, Wp), dtype=torch.bool, device=dev)
+    phase[:, :H, :W] = raw > 0  # as ``clean_masks_batched`` hands it over
 
     # -- [3] K1 ----------------------------------------------------------
     print("[3] K1 carve vs its plain version", flush=True)
@@ -315,11 +466,24 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     k2_plain_ms = timed_ms(
         lambda: ccl_label.label_components_combined_plain(phase), torch, dev,
         flush=flush)
-    k2_bytes = 2 * phase.numel() * 4  # phase in, labels out
+    # the least this data needs: 1 byte in, 4 out per pixel, and the counts
+    k2_bytes = phase.numel() * (1 + 4) + 4 * len(cams)
     k2_ops = K2_OPS_PER_PIXEL_ITER * Hp * Wp * int(iters.sum())
     k2_bound, k2_bound_by = bound(k2_bytes, k2_ops)
+    k2_route = (ccl_label.kernel_route(ccl_label.K2, Hp, Wp)
+                if dev.type == "cuda" else None)
     print(f"  K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-          f"{k2_bound:.5f} ms ({k2_bound_by}: {k2_bytes} B, {k2_ops} ops)")
+          f"{k2_bound:.5f} ms ({k2_bound_by}: {k2_bytes} B, {k2_ops} ops); "
+          f"route at {(Hp, Wp)}: {k2_route}")
+    if dev.type == "cuda":
+        k2_iter_us = per_iteration_us(
+            torch, dev, ccl_label.label_components_combined, Hp, Wp)
+        print(f"  K2 {k2_iter_us:.2f} us per iteration (one image, serpentine)")
+    label_batch = OFFLINE_NF * len(cams)  # images per launch, offline path
+    k2_err = max(k2_err, hold_labelling(
+        torch, dev, "K2", ccl_label.K2, ccl_label.label_components_combined,
+        ccl_label.label_components_combined_plain, label_large_hw,
+        label_batch, label_cap, Hp, Wp))
 
     # -- [5] main path on the card and on the CPU -------------------------
     print("[5] main path: process_frame_fast, card vs CPU", flush=True)
@@ -555,7 +719,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
 
     # -- [13] K5 ---------------------------------------------------------
     print("[13] K5 single-phase labelling vs its plain version", flush=True)
-    fg5 = (phase > 0).to(torch.int32)
+    fg5 = phase
     ccl_label.K5.launches = 0
     labels5, iters5 = ccl_label.label_components_batched(fg5)
     sync(torch, dev)
@@ -567,26 +731,41 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
            and (k5_launches == 1 or dev.type == "cpu"),
            f"K5 labels bit-equal at {tuple(fg5.shape)}, iterations to "
            f"fixpoint {iters5.tolist()}")
-    expect(bool((labels5[fg5 == 0] == ccl_label.BIG).all())
-           and bool((labels5[fg5 > 0] < Hp * Wp).all()),
+    expect(bool((labels5[~fg5] == ccl_label.BIG).all())
+           and bool((labels5[fg5] < Hp * Wp).all()),
            "background 2^30, foreground a linear index")
     k5_ms = timed_ms(lambda: ccl_label.label_components_batched(fg5), torch,
                      dev, flush=flush)
     k5_plain_ms = timed_ms(
         lambda: ccl_label.label_components_batched_plain(fg5), torch, dev,
         reps=5, flush=flush)
-    k5_bytes = 2 * fg5.numel() * 4  # image in, labels out
+    k5_bytes = fg5.numel() * (1 + 4) + 4 * len(cams)  # as for K2
     k5_ops = K5_OPS_PER_PIXEL_ITER * Hp * Wp * int(iters5.sum())
     k5_bound, k5_bound_by = bound(k5_bytes, k5_ops)
+    k5_route = (ccl_label.kernel_route(ccl_label.K5, Hp, Wp)
+                if dev.type == "cuda" else None)
     print(f"  K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound "
-          f"{k5_bound:.5f} ms ({k5_bound_by}: {k5_bytes} B, {k5_ops} ops)")
+          f"{k5_bound:.5f} ms ({k5_bound_by}: {k5_bytes} B, {k5_ops} ops); "
+          f"route at {(Hp, Wp)}: {k5_route}")
+    if dev.type == "cuda":
+        k5_iter_us = per_iteration_us(
+            torch, dev, ccl_label.label_components_batched, Hp, Wp)
+        print(f"  K5 {k5_iter_us:.2f} us per iteration (one image, serpentine)")
+    k5_err = max(k5_err, hold_labelling(
+        torch, dev, "K5", ccl_label.K5, ccl_label.label_components_batched,
+        ccl_label.label_components_batched_plain, label_large_hw,
+        label_batch, label_cap, Hp, Wp))
+    if dev.type == "cuda":
+        expect(k2_route["route"] == k5_route["route"] == "cluster",
+               f"the production shape {(Hp, Wp)} takes the cluster route")
 
-    def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n):
+    def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
+            **more):
         return {"name": name, "route": "cuda",
                 "source": f"vbr_tpu_torch/csrc/{k.source.name}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by, "library_ms": None, **more}
 
     return {
         "kernels": [
@@ -595,7 +774,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                 launches[0]),
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
-                k2_bound, k2_bound_by, launches[1]),
+                k2_bound, k2_bound_by, launches[1], kernel_route=k2_route),
             row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
                 k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches),
             row(cb.K4, "K4 carve_frames", "vbr_tpu/ops/carve_pallas.py:1212",
@@ -603,7 +782,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                 k4_launches),
             row(ccl_label.K5, "K5 ccl_label", "vbr_tpu/ops/ccl_pallas.py:67",
                 k5_err, k5_ms, k5_plain_ms, k5_bound, k5_bound_by,
-                k5_launches),
+                k5_launches, kernel_route=k5_route),
         ],
         "main_path": {"process_frame_fast_ms": step_ms,
                       "stream_ms_per_frame": stream_ms,

@@ -45,3 +45,40 @@ def test_port_imports_without(blocked):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
+
+
+def test_lib_path_follows_source_headers_and_flags(tmp_path):
+    """A kernel's library is named by its source, the headers it lists and
+    its flags: editing any of them names another library (no ``nvcc``
+    needed to see that)."""
+    from vbr_tpu_torch.ops._cuda import CudaKernel
+
+    src, hdr = tmp_path / "k.cu", tmp_path / "k_common.cuh"
+    src.write_text('#include "k_common.cuh"\n')
+    hdr.write_text("// one\n")
+
+    def kernel(deps=("k_common.cuh",), flags=()):
+        k = CudaKernel("k.cu", "k", [], extra_flags=flags, deps=deps)
+        k.source = src
+        k.deps = [src.parent / d for d in deps]
+        return k
+
+    first = kernel().lib_path
+    assert kernel().lib_path == first  # stable
+    assert kernel(deps=()).lib_path != first  # the header is in the hash
+    assert kernel(flags=("-DX=1",)).lib_path != first
+    hdr.write_text("// two\n")
+    second = kernel().lib_path
+    assert second != first  # an edited header cannot load a stale build
+    assert kernel(deps=()).lib_path == kernel(deps=()).lib_path
+    src.write_text('#include "k_common.cuh"\n// edited\n')
+    assert kernel().lib_path != second
+
+
+def test_labelling_kernels_list_their_shared_header():
+    from vbr_tpu_torch.ops import ccl_label
+
+    for k in (ccl_label.K2, ccl_label.K5):
+        assert [d.name for d in k.deps] == ["ccl_common.cuh"]
+        assert all(d.exists() for d in k.deps)
+        assert f'#include "{k.deps[0].name}"' in k.source.read_text()

@@ -2,11 +2,12 @@
 
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
-Libraries are named by a hash of their source and their ``nvcc`` flags and
-live in ``build/kernels`` at the repository root (listed in
-``.gitignore``), so a changed source or flag rebuilds and an unchanged one
-loads at once.  ``build_kernels`` starts one
-``nvcc`` per source, all together, and waits for them.
+Libraries are named by a hash of their source, of the ``csrc`` headers the
+source includes (``deps``) and of their ``nvcc`` flags, and live in
+``build/kernels`` at the repository root (listed in ``.gitignore``), so a
+changed source, header or flag rebuilds and an unchanged one loads at once.
+``build_kernels`` starts one ``nvcc`` per source, all together, and waits
+for them.
 
 Nothing here runs at import: the CPU tests import every module, on hosts
 with no ``nvcc`` and no card.
@@ -51,23 +52,29 @@ class CudaKernel:
     on the given stream and returns ``cudaGetLastError()``; a non-zero
     status raises.  ``launches`` counts successful launches and is reset
     by whoever wants to count a run (``chip_smoke.py``).  ``extra_flags``
-    are this source's own ``nvcc`` flags, after ``NVCC_FLAGS``.
+    are this source's own ``nvcc`` flags, after ``NVCC_FLAGS``.  ``deps``
+    names the headers beside the source that it includes: their bytes go
+    into the library's name, so an edited header cannot load a stale build.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence,
-                 extra_flags: Sequence[str] = ()):
+                 extra_flags: Sequence[str] = (), deps: Sequence[str] = ()):
         self.source = CSRC / source
+        self.deps = [self.source.parent / d for d in deps]
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.flags = (*NVCC_FLAGS, *extra_flags)
         self.launches = 0
         self.build_log = ""
+        self._lib = None
         self._fn = None
         self._err = None
 
     @property
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for dep in self.deps:
+            h.update(b"\0" + dep.name.encode() + b"\0" + dep.read_bytes())
         h.update("\0".join(self.flags).encode())
         digest = h.hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
@@ -79,7 +86,8 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *self.flags, "-I", str(self.source.parent), "-o",
+               str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out
@@ -92,25 +100,32 @@ class CudaKernel:
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
         os.replace(tmp, out)
 
-    def _load(self):
-        if self._fn is None:
+    def function(self, symbol: str, argtypes: Sequence):
+        """Another exported function of the library (built and loaded at
+        first use); it returns a CUDA status, which ``status_ok`` checks."""
+        if self._lib is None:
             build_kernels([self])
-            lib = ctypes.CDLL(str(self.lib_path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = lib.vbr_error_string
+            self._lib = ctypes.CDLL(str(self.lib_path))
+            err = self._lib.vbr_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
-        return self._fn
+            self._err = err
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
-    def launch(self, *args):
-        fn = self._load()
-        status = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    def status_ok(self, status: int, what: str) -> None:
         if status != 0:
             msg = self._err(status).decode()
-            raise RuntimeError(f"{self.symbol} launch failed: {msg} ({status})")
+            raise RuntimeError(f"{what} failed: {msg} ({status})")
+
+    def launch(self, *args):
+        if self._fn is None:
+            self._fn = self.function(self.symbol, self.argtypes)
+        status = self._fn(
+            *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        self.status_ok(status, f"{self.symbol} launch")
         self.launches += 1
 
 

@@ -13,6 +13,12 @@ below (the same iteration, written with Hillis–Steele segmented scans).
 ``ccl_pallas.py::label_components_batched``: foreground only, background =
 2³⁰, its own iteration (all 8 neighbours, then scans segmented on the
 foreground runs) with the same cap; kernel ``csrc/ccl_label.cu``.
+
+Both kernels take the image as one byte per pixel (a ``torch.bool`` is
+passed as it is) and have two routes, chosen in their launchers by shape
+alone: one thread-block cluster per image with the labels in shared memory
+(``csrc/ccl_common.cuh``) where a band of rows fits, else one CTA per image
+with two label buffers in device memory.  ``kernel_route`` says which.
 """
 
 from __future__ import annotations
@@ -29,33 +35,72 @@ _DIAGS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
 K2 = CudaKernel(
     "ccl_combined.cu", "vbr_ccl_combined",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    deps=("ccl_common.cuh",),
 )
 K5 = CudaKernel(
     "ccl_label.cu", "vbr_ccl_label",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    deps=("ccl_common.cuh",),
 )
 _NEIGHBOURS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
                     if (dy, dx) != (0, 0))
+_routes: dict = {}
+
+
+def kernel_route(kernel: CudaKernel, H: int, W: int) -> dict:
+    """The route ``kernel`` (K2 or K5) takes for (H, W) images on the
+    current card, as its launcher decides it: ``{"route": "cluster" |
+    "general", "cluster": CTAs per image (0: general), "smem_bytes": shared
+    memory per CTA, "active_clusters": clusters the card runs at once}``."""
+    key = (kernel.symbol, H, W, torch.cuda.current_device())
+    if key not in _routes:
+        out = [ctypes.c_int(0) for _ in range(3)]
+        fn = kernel.function(
+            f"{kernel.symbol}_route",
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+        kernel.status_ok(fn(H, W, *(ctypes.byref(o) for o in out)),
+                         f"{kernel.symbol}_route")
+        cluster, smem, active = (o.value for o in out)
+        _routes[key] = {"route": "cluster" if cluster else "general",
+                        "cluster": cluster, "smem_bytes": smem,
+                        "active_clusters": active}
+    return _routes[key]
+
+
+def _launch(kernel: CudaKernel, image: torch.Tensor, name: str,
+            max_iters: int):
+    """Label a CUDA (B, H, W) 0/1 image with K2 or K5."""
+    B, H, W = image.shape
+    if image.dtype == torch.bool:
+        image = image.contiguous().view(torch.uint8)
+    elif image.dtype != torch.uint8:
+        image = image.to(torch.uint8)
+    image = image.contiguous()
+    check(image, name, torch.uint8, (B, H, W), image.device)
+    labels = torch.empty((B, H, W), dtype=torch.int32, device=image.device)
+    iters = torch.empty(B, dtype=torch.int32, device=image.device)
+    with torch.cuda.device(image.device):
+        # the cluster route keeps its labels in shared memory
+        general = kernel_route(kernel, H, W)["route"] == "general"
+        scratch = torch.empty_like(labels) if general else None
+        kernel.launch(ptr(image), ptr(labels),
+                      ptr(scratch) if general else None, ptr(iters),
+                      B, H, W, int(max_iters))
+    return labels, iters
 
 
 def label_components_combined(phase: torch.Tensor, max_iters: int = 64):
-    """(B, Hp, Wp) 0/1 phase (Hp % 8 == 0, Wp % 128 == 0) →
-    (labels (B, Hp, Wp) i32, iterations run (B,) i32)."""
+    """(B, Hp, Wp) 0/1 phase (Hp % 8 == 0, Wp % 128 == 0; bool, or any
+    type holding 0 and 1) → (labels (B, Hp, Wp) i32, iterations run (B,)
+    i32)."""
     B, H, W = phase.shape
     if H % 8 or W % 128:
         raise ValueError("padded image dims must be multiples of (8, 128)")
-    phase = phase.to(torch.int32).contiguous()
     if phase.device.type == "cpu":
         return label_components_combined_plain(phase, max_iters)
     if phase.device.type != "cuda":
         raise ValueError(f"no kernel for device {phase.device}")
-    check(phase, "phase", torch.int32, (B, H, W), phase.device)
-    labels = torch.empty_like(phase)
-    scratch = torch.empty_like(phase)
-    iters = torch.empty(B, dtype=torch.int32, device=phase.device)
-    K2.launch(ptr(phase), ptr(labels), ptr(scratch), ptr(iters),
-              B, H, W, int(max_iters))
-    return labels, iters
+    return _launch(K2, phase, "phase", max_iters)
 
 
 def _shift(x: torch.Tensor, d: int, dim: int, fill: int) -> torch.Tensor:
@@ -121,25 +166,18 @@ def label_components_combined_plain(phase: torch.Tensor, max_iters: int = 64):
 
 
 def label_components_batched(fg: torch.Tensor, max_iters: int = 64):
-    """(B, Hp, Wp) 0/1 foreground (Hp % 8 == 0, Wp % 128 == 0) →
-    (labels (B, Hp, Wp) i32: min padded linear index of the pixel's
-    8-connected foreground component, 2³⁰ on the background; iterations
-    run (B,) i32)."""
+    """(B, Hp, Wp) 0/1 foreground (Hp % 8 == 0, Wp % 128 == 0; bool, or
+    any type holding 0 and 1) → (labels (B, Hp, Wp) i32: min padded linear
+    index of the pixel's 8-connected foreground component, 2³⁰ on the
+    background; iterations run (B,) i32)."""
     B, H, W = fg.shape
     if H % 8 or W % 128:
         raise ValueError("padded image dims must be multiples of (8, 128)")
-    fg = fg.to(torch.int32).contiguous()
     if fg.device.type == "cpu":
         return label_components_batched_plain(fg, max_iters)
     if fg.device.type != "cuda":
         raise ValueError(f"no kernel for device {fg.device}")
-    check(fg, "fg", torch.int32, (B, H, W), fg.device)
-    labels = torch.empty_like(fg)
-    scratch = torch.empty_like(fg)
-    iters = torch.empty(B, dtype=torch.int32, device=fg.device)
-    K5.launch(ptr(fg), ptr(labels), ptr(scratch), ptr(iters),
-              B, H, W, int(max_iters))
-    return labels, iters
+    return _launch(K5, fg, "fg", max_iters)
 
 
 def label_components_batched_plain(fg: torch.Tensor, max_iters: int = 64):
