@@ -10,7 +10,11 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
   1. prints the card (``nvidia-smi`` name and power limit);
   2. builds the kernels and prints the build time and ptxas usage;
   3. K1 (blocked carve) against its plain PyTorch version on the card:
-     outputs bit-equal, times, active fraction and bound;
+     outputs bit-equal, times, active fraction and bound, what it launches;
+     then, bit-equal again and not timed, inputs the production frame does
+     not reach: all masks empty, all masks full, a view threshold of 3,
+     random masks, and on a 32^3 grid another colour camera and a rig of 3
+     cameras; the kernel is run several times on each;
   4. K2 (combined-phase labelling) against its plain version on the raw
      masks of the main-path frame: labels bit-equal, iterations, times;
      then, labels and iteration counts bit-equal again, on inputs that
@@ -34,7 +38,12 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      and the device's idle share;
   9. K3 (multi-frame MOG training) against its plain version on the card:
      one camera, one 16-frame chunk from a mid-training state, all four
-     state arrays bit-equal, times and bound;
+     state arrays and the carried high-water mark bit-equal, times (also by
+     the number of slots cached in shared memory) and bound; then,
+     bit-equal again and not timed: random frames that drive pixels past
+     the cached slots, the same with 1 and 2 cached slots, K = 3 and K = 1,
+     a 37x53 image, a single frame, two chunks in a row, a state handed
+     over without its mark; the kernel is run several times on each;
  10. training end to end, ``VisualHull.train_background`` on 32 seeded
      background frames per camera: K3 launches counted, a band of rows of
      one camera retrained by the plain version on the CPU, bit-equal;
@@ -47,6 +56,11 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      frame, against its plain version: labels and iterations equal, times;
      then the inputs of phase 4 again.
 
+A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
+the start event keeps the host out of the interval; L2 is flushed by
+reading, which leaves no dirty lines), and phase 2 prints what an empty
+launch costs between the same two events (``launch_floor_ms``).
+
 It prints one JSON line of per-kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero without that line; so does a machine without CUDA.  It imports
@@ -55,7 +69,9 @@ nothing of JAX or of the ``vbr_tpu`` package.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +89,9 @@ ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 K2_OPS_PER_PIXEL_ITER = 21  # 4 diag compare+min, 4 scans × (compare+min), 5 change tests
 K5_OPS_PER_PIXEL_ITER = 22  # 8 neighbour min, fg select, 4 scans × (select+min), 5 change tests
 LABEL_CAP = 64  # ``max_iters`` of both labelling kernels in the pipeline
+# names of the port's kernels as the profiler reports them
+OWN_KERNELS = ("carve_blocked_kernel", "carve_frames_kernel", "ccl_",
+               "mog_train_kernel")
 KERNEL_RERUNS = 5  # runs of a labelling kernel on each of its test images
 
 
@@ -134,11 +153,22 @@ def paint_frame(rng, cams, bg, center, speckle=200, holes=4):
     return fr
 
 
+SPIN_CYCLES = 400_000  # device clock cycles: ~200 us at the H100's 1.7-2 GHz
+
+
 def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None):
-    """Median ms of ``fn`` over ``reps`` calls (CUDA events on the card,
-    the host clock on the CPU), L2 flushed before each call.  With
-    ``setup``, each call is ``fn(setup())`` and ``setup`` is not timed
-    (for a kernel that updates its input in place)."""
+    """Median ms of ``fn`` over ``reps`` calls, ``flush()`` (a pass over a
+    buffer larger than L2) before each.  With ``setup``, each call is
+    ``fn(setup())`` and ``setup`` is not timed (for a kernel that updates
+    its input in place).
+
+    On the card the time is the device's: after the flush a spin kernel
+    keeps the device busy for ~200 us, and only then come the start event,
+    ``fn`` and the end event.  The host enqueues all three while the spin
+    runs, so the interval between the events holds what ``fn`` launched
+    and no wait for the host (as long as the host needs less than the
+    spin for ``fn``; a plain version of many launches may not).  On the
+    CPU it is the host clock around ``fn``."""
     def args():
         return () if setup is None else (setup(),)
 
@@ -147,10 +177,11 @@ def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None):
     for _ in range(reps):
         a = args()
         if flush is not None:
-            flush.zero_()
+            flush()
         if dev.type == "cuda":
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
             s.record()
             fn(*a)
             e.record()
@@ -342,6 +373,162 @@ def hold_labelling(torch, dev, name, kernel, fn, plain, large_hw, batch,
     return worst
 
 
+def hold_carve(torch, dev, cb, cams, image_hw, btab, masks, frame_d, vt):
+    """Hold K1 against its plain version, occupancy and colours bit-equal,
+    on inputs the production frame does not reach: every sub-block
+    inactive, every sub-block with valid projections full, a lower view
+    threshold, random masks, and on a 32^3 grid (fewer sub-blocks than the
+    card holds CTAs) another colour camera and a 3-camera rig (the kernel
+    with a run-time camera count).  The kernel is run several times on
+    each; returns the largest difference seen and what each case held."""
+    from vbr_tpu_torch.utils.config import GridConfig
+
+    rng = np.random.default_rng(SEED + 11)
+    small = GridConfig(nx=32, ny=32, nz=32)
+    tab_cc = cb.build_block_tables(cams, small, image_hw, color_camera=2,
+                                   device=dev)
+    tab_3 = cb.build_block_tables(cams[:3], small, image_hw, color_camera=0,
+                                  device=dev)
+    noise = torch.from_numpy(
+        (rng.random(tuple(masks.shape)) < 0.5).astype(np.uint8) * 255).to(dev)
+    cases = [
+        ("all masks empty", btab, torch.zeros_like(masks), vt),
+        ("all masks full", btab, torch.full_like(masks, 255), vt),
+        ("views_threshold 3 of 4", btab, masks, 3),
+        ("random masks, threshold 2", btab, noise, 2),
+        ("32^3 grid, colour camera 2", tab_cc, masks, vt),
+        ("32^3 grid, 3 cameras", tab_3, masks[:3].contiguous(), 3),
+    ]
+    worst, kept = 0.0, {}
+    for what, tab, m, thr in cases:
+        active, full = cb.block_activity(m, thr, tab.allv, tab.ry, tab.rx)
+        args = (tab.pk, tab.lcc, active, full, m,
+                frame_d[tab.color_camera].contiguous())
+        kw = dict(color_camera=tab.color_camera, views_threshold=thr)
+        want = cb.carve_blocked_plain(*args, **kw)
+        for _ in range(KERNEL_RERUNS if dev.type == "cuda" else 1):
+            got = cb.carve_blocked_kernel(*args, **kw)
+            sync(torch, dev)
+            worst = max(worst, max_abs_err(zip(got, want)))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise Failed(f"K1 {what}: differs from the plain version")
+        nblk = tab.nsuper * tab.nsub
+        plan = (cb.k1_launch_plan(nblk, tab.num_cameras)
+                if dev.type == "cuda" else None)
+        kept[what] = dict(
+            nblk=nblk, active=int((active > 0).sum()),
+            full=int(((active > 0) & (full > 0)).sum()),
+            occupied=int(got[0].sum()), coloured=int((got[1] > 0).sum()),
+            plan=plan)
+        print(f"  ok: K1 {what}: occupancy and colours bit-equal; "
+              f"{kept[what]}", flush=True)
+    empty, allfg = kept["all masks empty"], kept["all masks full"]
+    expect(empty["active"] == 0 and empty["occupied"] == 0,
+           "K1: with empty masks no sub-block is active and no voxel set")
+    expect(allfg["occupied"] >= allfg["full"] * cb.BV > 0
+           or dev.type == "cpu" and allfg["occupied"] > 0,
+           "K1: with full masks the sub-blocks whose projections are all "
+           "valid are full and set every voxel")
+    expect(kept["views_threshold 3 of 4"]["occupied"]
+           > kept["32^3 grid, colour camera 2"]["occupied"] > 0
+           and kept["32^3 grid, 3 cameras"]["occupied"] > 0
+           and 0 < kept["random masks, threshold 2"]["occupied"],
+           "K1: every other case sets some voxels")
+    if dev.type == "cuda":
+        few = kept["32^3 grid, 3 cameras"]
+        nblk, big = empty["nblk"], empty["plan"]
+        expect(big["c_static"] and not few["plan"]["c_static"]
+               and few["plan"]["ctas"] == few["nblk"]
+               and big["ctas"] < nblk and nblk % big["ctas"] != 0,
+               f"K1: the rig's camera count is compiled in, 3 cameras run "
+               f"the run-time loop; {few['nblk']} sub-blocks take as many "
+               f"CTAs, {nblk} take {big['ctas']} (not a divisor)")
+    return worst
+
+
+def clone_train_state(st):
+    """A copy of a ``MOGTrainState`` for a kernel that updates in place."""
+    return type(st)(*(a if a is None else a.clone() for a in st))
+
+
+def random_chunk(rng, T, H, W):
+    """T frames of uniform random u8 colours: a pixel matches no slot on
+    most frames, so its mixture opens a new slot nearly every frame."""
+    return rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8)
+
+
+def hold_training(torch, dev, gmm, ts0, image_hw, params):
+    """Hold K3 against its plain version, all four state arrays, ``nframes``
+    and the carried ``used`` mark bit-equal, on inputs the background
+    sequence does not reach: random frames on the mid-training state (a
+    pixel passes the slots the kernel caches, so slots live in both
+    residences and move between them), the same with one and two cached
+    slots, K = 3 and K = 1, an image of 37x53 pixels, a single frame, a
+    state handed over without its mark, and two chunks in a row.  The
+    kernel is run several times on each; returns the largest difference
+    and the most slots a pixel of the first case uses."""
+    from vbr_tpu_torch.utils.config import MOGParams
+
+    rng = np.random.default_rng(SEED + 13)
+    names = ("weight", "sort_key", "mean", "var")
+    reruns = KERNEL_RERUNS if dev.type == "cuda" else 1
+    worst = 0.0
+
+    def hold(what, st, frames, p, cache_slots=None):
+        """kernel(st, frames) == plain(st, frames), ``reruns`` times;
+        returns the kernel's state (with its ``used``)."""
+        nonlocal worst
+        fr = torch.from_numpy(frames).to(dev)
+        want = gmm.train_chunk_plain(st, fr, p)
+        mark = gmm.slot_high_water(want.weight, want.sort_key)
+        for _ in range(reruns):
+            if cache_slots is None:
+                got = gmm.train_chunk_kernel(clone_train_state(st), fr, p)
+            else:
+                got = gmm._launch_k3(clone_train_state(st), fr, p,
+                                     cache_slots)
+            sync(torch, dev)
+            worst = max(worst, max_abs_err(
+                (getattr(got, n), getattr(want, n)) for n in names))
+            same = all(torch.equal(getattr(got, n), getattr(want, n))
+                       for n in names + ("nframes",))
+            if not same or (got.used is not None
+                            and not torch.equal(got.used, mark)):
+                raise Failed(f"K3 {what}: differs from the plain version"
+                             + ("" if not same else " in the carried mark"))
+        print(f"  ok: K3 {what}: state, nframes and mark bit-equal; slots "
+              f"per pixel mean {float(mark.float().mean()):.2f}, max "
+              f"{int(mark.max())}", flush=True)
+        return got, int(mark.max())
+
+    H, W = image_hw
+    noise = random_chunk(rng, TRAIN_CHUNK, H, W)
+    _, deepest = hold("random frames on the mid-training state", ts0, noise,
+                      params)
+    if dev.type == "cuda":
+        for slots in (1, 2):
+            hold(f"the same with {slots} cached slot(s)", ts0, noise, params,
+                 cache_slots=slots)
+    h, w = 37, 53  # HW % 128 != 0 and HW % 4 != 0
+    for K in (3, 1):
+        p = MOGParams(n_mixtures=K, history=12)
+        hold(f"K = {K}, {h}x{w}, 16 random frames from an empty state",
+             gmm.init_train_state((h, w), p, dev),
+             random_chunk(rng, 16, h, w), p)
+    p = MOGParams(history=20)
+    st = gmm.init_train_state((h, w), p, dev)
+    st, _ = hold(f"{h}x{w}, a single frame", st, random_chunk(rng, 1, h, w),
+                 p)
+    for i in range(2):  # the mark and nframes carried from chunk to chunk
+        frames = random_chunk(rng, 16, h, w)
+        frames[:, :, : w // 2] //= 32  # half the image matches now and then
+        st, _ = hold(f"{h}x{w}, chunk {i + 1} of two in a row (16 frames, "
+                     "across the history clamp)", st, frames, p)
+    hold(f"{h}x{w}, the state handed over without its mark",
+         st._replace(used=None), random_chunk(rng, 4, h, w), p)
+    return worst, deepest
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP):
@@ -405,8 +592,23 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     frame0 = paint_frame(rng, cams, bg, center0)
     frame0_d = torch.from_numpy(frame0).to(dev)
     btab = model._btab
-    flush = (torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-             if dev.type == "cuda" else None)
+    # L2 flush before each timed launch: READ a buffer larger than the 50 MB
+    # L2 (a reduction into one element), which leaves no dirty lines behind
+    # for the timed kernel's first misses to write back, as zeroing it would
+    flush_buf = (torch.empty(8 << 20, dtype=torch.int64, device=dev)
+                 if dev.type == "cuda" else None)
+    flush = flush_buf.sum if dev.type == "cuda" else None
+    launch_floor_ms = None
+    if dev.type == "cuda":
+        empty = cb.K1.function("vbr_empty_launch", [ctypes.c_void_p])
+
+        def empty_launch():
+            cb.K1.status_ok(empty(ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream)), "empty launch")
+
+        launch_floor_ms = timed_ms(empty_launch, torch, dev, flush=flush)
+        print(f"  launch_floor_ms {launch_floor_ms:.5f} (a kernel that "
+              "returns at once, between the same two events)")
 
     # stage inputs of the two kernels on the main-path frame
     raw = background.raw_masks_batched_fz(model._stacked_fz, frame0_d,
@@ -433,6 +635,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                      torch, dev, flush=flush)
     k1_plain_ms = timed_ms(lambda: cb.carve_blocked_plain(*k1_args, **k1_kw),
                            torch, dev, flush=flush)
+    k1_ms_zeroing_flush = (timed_ms(
+        lambda: cb.carve_blocked_kernel(*k1_args, **k1_kw), torch, dev,
+        flush=flush_buf.zero_) if dev.type == "cuda" else None)
     nblk, C = btab.nsuper * btab.nsub, btab.num_cameras
     act, ful = active.bool(), full.bool()
     n_compute = int((act & ~ful).sum())
@@ -450,6 +655,13 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
           f"full {n_full}, occupied voxels {n_occ}")
     print(f"  K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
           f"{k1_bound:.5f} ms ({k1_bound_by}: {k1_bytes} B, {k1_ops} ops)")
+    if dev.type == "cuda":
+        print(f"  K1 after a zeroing flush (dirty lines in L2): "
+              f"{k1_ms_zeroing_flush:.4f} ms")
+    k1_plan = cb.k1_launch_plan(nblk, C) if dev.type == "cuda" else None
+    print(f"  K1 launch: {k1_plan}")
+    k1_err = max(k1_err, hold_carve(torch, dev, cb, cams, image_hw, btab,
+                                    masks, frame0_d, vt))
 
     # -- [4] K2 ----------------------------------------------------------
     print("[4] K2 combined-phase labelling vs its plain version", flush=True)
@@ -566,13 +778,15 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
           "from a mid-training state)", flush=True)
     p_mid = MOGParams()
     # the chunk crosses the 1/history clamp of the learning rate
-    ts0 = gmm.MOGTrainState(*(a.to(dev) for a in train_state_from_mog(
+    ts0 = gmm.MOGTrainState(*(a if a is None else a.to(dev)
+                              for a in train_state_from_mog(
         states[0], torch, p_mid.history - k3_frames // 2)))
+    ts0 = ts0._replace(used=gmm.slot_high_water(ts0.weight, ts0.sort_key))
     chunk_bgr = background_sequence(rng, bg[0], k3_frames, sigma=6.0)
     chunk = bgr_to_hsv_u8(torch.from_numpy(chunk_bgr).to(dev)).contiguous()
 
     def clone_state():
-        return gmm.MOGTrainState(*(a.clone() for a in ts0))
+        return clone_train_state(ts0)
 
     got3 = gmm.train_chunk_kernel(clone_state(), chunk, p_mid)
     want3 = gmm.train_chunk_plain(ts0, chunk, p_mid)
@@ -595,13 +809,49 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                            torch, dev, reps=2, flush=flush)
     # the update is in place and leaves a never-used slot (all zeros)
     # alone, so this data needs the used slots' 8 floats read and written
-    # once, and the frames read once
+    # once, the frames read once, the mark and nframes read and written
     n_used = int(used.sum())
-    k3_bytes = 2 * 32 * n_used + chunk.numel()
+    k3_bytes = 2 * 32 * n_used + chunk.numel() + 2 * 4 * (H * W + 1)
     k3_ops = k3_frames * n_used * 25  # per used slot and frame
     k3_bound, k3_bound_by = bound(k3_bytes, k3_ops)
     print(f"  K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, bound "
           f"{k3_bound:.5f} ms ({k3_bound_by}: {k3_bytes} B, {k3_ops} ops)")
+    expect(got3.used is None and dev.type == "cpu"
+           or torch.equal(got3.used, gmm.slot_high_water(want3.weight,
+                                                         want3.sort_key)),
+           "K3 carried mark equals the one recomputed from the state")
+    k3_plan, k3_by_slots = None, {}
+    if dev.type == "cuda":
+        k3_plan = gmm.k3_launch_plan(p_mid.n_mixtures, H * W)
+        for slots in (4, 7, 8, 12, 16):
+            k3_by_slots[slots] = timed_ms(
+                lambda st: gmm._launch_k3(st, chunk, p_mid, slots), torch,
+                dev, reps=5, flush=flush, setup=clone_state)
+        k3_one_ms = timed_ms(
+            lambda st: gmm.train_chunk_kernel(st, chunk[:1], p_mid), torch,
+            dev, reps=5, flush=flush, setup=clone_state)
+        k3_plan["ms_by_cache_slots"] = k3_by_slots
+        k3_plan["ms_one_frame"] = k3_one_ms
+        print(f"  K3 launch: {k3_plan}; a chunk of one frame {k3_one_ms:.4f} "
+              f"ms, so {(k3_ms - k3_one_ms) * 1e3 / max(k3_frames - 1, 1):.2f}"
+              " us per further frame")
+    worst3, k3_deepest = hold_training(torch, dev, gmm, ts0, image_hw, p_mid)
+    k3_err = max(k3_err, worst3)
+    expect(k3_deepest > gmm.K3_CACHE_SLOTS,
+           f"K3: random frames drive a pixel to {k3_deepest} slots, past "
+           f"the {gmm.K3_CACHE_SLOTS} the kernel caches")
+    if dev.type == "cuda":
+        def k3_step():
+            gmm.train_chunk_kernel(clone_state(), chunk, p_mid)
+            sync(torch, dev)
+
+        k3_step_ms = timed_ms(k3_step, torch, dev, reps=3)
+        k3_profile = profile_step(
+            torch, k3_step, k3_step_ms,
+            "  profile of two K3 launches (each after a copy of the state):",
+            frames=2, top=4)
+    else:
+        k3_profile = None
     del got3, want3, ts0, used
 
     # -- [10] training end to end ----------------------------------------
@@ -771,12 +1021,13 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "kernels": [
             row(cb.K1, "K1 carve_blocked", "vbr_tpu/ops/carve_pallas.py:673",
                 k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by,
-                launches[0]),
+                launches[0], launch=k1_plan),
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
                 k2_bound, k2_bound_by, launches[1], kernel_route=k2_route),
             row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
-                k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches),
+                k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches,
+                launch=k3_plan),
             row(cb.K4, "K4 carve_frames", "vbr_tpu/ops/carve_pallas.py:1212",
                 k4_err, k4_ms, k4_plain_ms, k4_bound, k4_bound_by,
                 k4_launches),
@@ -784,11 +1035,14 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                 k5_err, k5_ms, k5_plain_ms, k5_bound, k5_bound_by,
                 k5_launches, kernel_route=k5_route),
         ],
+        "clock": {"launch_floor_ms": launch_floor_ms,
+                  "k1_ms_zeroing_flush": k1_ms_zeroing_flush},
         "main_path": {"process_frame_fast_ms": step_ms,
                       "stream_ms_per_frame": stream_ms,
                       "stream_frames": STREAM_FRAMES,
                       "profile": profile},
-        "training": {"frames_per_camera": train_frames, "seconds": train_s},
+        "training": {"frames_per_camera": train_frames, "seconds": train_s,
+                     "k3_profile": k3_profile},
         "offline": {"ms_per_frame": offline_ms, "frames": STREAM_FRAMES,
                     "frames_per_launch": OFFLINE_NF,
                     "launches": off_launches, "profile": offline_profile},
@@ -826,7 +1080,14 @@ def profile_step(torch, step, step_ms, title, frames=4, frames_per_step=1,
           f"{n_ops:.0f} device ops/frame")
     for ms, n, name in rows[:top]:
         print(f"  {ms:9.4f} ms/frame  x{n:<6.4g} {name[:90]}")
+    # the profiler's own duration of the port's kernels (L2 as the step
+    # leaves it), to hold against the event times of ``timed_ms``
+    own = {" ".join(re.findall(r"\w+_kernel|\w+Rule", name)[:2]): ms / n
+           for ms, n, name in rows if any(k in name for k in OWN_KERNELS)}
+    print("  profiler ms per launch: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in own.items()))
     return {"device_busy_ms_per_frame": busy_ms,
+            "own_kernels_ms_per_launch": own,
             "idle_share": 1 - busy_ms / step_ms,
             "device_ops_per_frame": n_ops,
             "top": [{"name": name[:90], "ms_per_frame": ms, "calls": n}

@@ -220,3 +220,84 @@ def test_kernel_wrapper_uses_plain_on_cpu_only(rig, tables):
     with pytest.raises(ValueError, match="no kernel"):
         tcb.carve_blocked_kernel(*(a.to("meta") for a in args),
                                  color_camera=1, views_threshold=4)
+
+
+# -- the carve kernel's design, as far as the CPU can hold it ------------------
+
+
+@pytest.mark.parametrize("plane", ["occ", "col"])
+def test_four_voxels_per_word_is_the_byte_layout(plane):
+    """K1 stores four voxels per 32-bit word, byte e = voxel 4v + e: on a
+    little-endian machine that is the u8 layout ``compact_voxels_blocked``
+    and the plain version use."""
+    rng = np.random.default_rng(31)
+    shape = (3, 5, tcb.BV) if plane == "occ" else (3, 5, 3, tcb.BV)
+    hi = 2 if plane == "occ" else 256
+    vox = rng.integers(0, hi, shape, dtype=np.uint8)
+    quad = vox.reshape(shape[:-1] + (tcb.BV // 4, 4)).astype(np.uint32)
+    words = (quad[..., 0] | quad[..., 1] << 8 | quad[..., 2] << 16
+             | quad[..., 3] << 24)  # what thread v of the kernel stores
+    assert words.shape[-1] == 128
+    np.testing.assert_array_equal(words.view(np.uint8).reshape(shape), vox)
+    as_words = torch.from_numpy(vox).view(torch.int32)
+    np.testing.assert_array_equal(as_words.numpy().view(np.uint32), words)
+    assert torch.equal(as_words.view(torch.uint8), torch.from_numpy(vox))
+
+
+@pytest.mark.parametrize("resident", [1, 64, 1320, 1584, 5000])
+@pytest.mark.parametrize("nblk", [1, 64, 4095, 4096])
+def test_persistent_partition_visits_every_block_once(nblk, resident):
+    """CTA i of G = min(nblk, resident CTAs) takes sub-blocks i, i + G, ...
+    in rounds of 128 (one flag pair per thread and round)."""
+    G = min(nblk, resident)
+    seen = np.zeros(nblk, np.int64)
+    for cta in range(G):
+        n_own = (nblk - cta + G - 1) // G
+        assert n_own >= 1
+        for base in range(0, n_own, 128):
+            for j in range(min(128, n_own - base)):
+                seen[cta + (base + j) * G] += 1
+    assert (seen == 1).all()
+
+
+def _design_case(case, rig):
+    cams_j, cams_t, masks, frames = rig
+    kw = dict(color_camera=1)
+    thr = 4
+    if case == "empty":
+        masks = np.zeros_like(masks)
+    elif case == "full":
+        masks = np.full_like(masks, 255)
+    elif case == "threshold_3":
+        thr = 3
+    elif case == "three_cameras":
+        cams_j, cams_t, masks, thr = cams_j[:3], cams_t[:3], masks[:3], 3
+    elif case == "color_camera_2":
+        kw = dict(color_camera=2)
+    return cams_j, cams_t, np.ascontiguousarray(masks), frames, kw, thr
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "threshold_3",
+                                  "three_cameras", "color_camera_2"])
+def test_plain_matches_pallas_on_the_card_check_inputs(rig, case):
+    """The inputs that hold K1 on the card beyond the production frame:
+    the plain version equals the Pallas kernel in interpret mode on each."""
+    cams_j, cams_t, masks, frames, kw, thr = _design_case(case, rig)
+    jt = jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
+                                accelerate=False, **kw)
+    tt = tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
+                                **kw)
+    image = frames[kw["color_camera"]]
+    occ_j, col_j = jcp.carve_blocked(
+        jnp.asarray(masks), jnp.asarray(image), jt, views_threshold=thr,
+        interpret=True, layout="blocked")
+    occ_t, col_t = tcb.carve_blocked(
+        torch.from_numpy(masks), torch.from_numpy(image), tt,
+        views_threshold=thr, layout="blocked")
+    np.testing.assert_array_equal(_t(occ_t), np.asarray(occ_j))
+    np.testing.assert_array_equal(_t(col_t), np.asarray(col_j))
+    n_occ = int(_t(occ_t).sum())
+    assert (n_occ == 0) if case == "empty" else n_occ > 0
+    if case == "full":  # every voxel that all cameras see
+        assert n_occ == int((_t(tt.pk) >> 10 != tcb.INVALID_ROW)
+                            .all(axis=2).sum())

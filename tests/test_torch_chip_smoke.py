@@ -64,8 +64,10 @@ def test_phases_run_on_cpu_small_rig(capsys):
                      "K4 carve_frames", "K5 ccl_label"]
     for k in report["kernels"]:
         assert k["max_abs_err"] == 0 and k["bound_ms"] > 0
-        # the labelling kernels also report the route their launcher took
-        more = {"kernel_route"} if k["name"][:2] in ("K2", "K5") else set()
+        # the labelling kernels also report the route their launcher took,
+        # the carve and the training kernel what they launch
+        more = ({"kernel_route"} if k["name"][:2] in ("K2", "K5")
+                else {"launch"} if k["name"][:2] in ("K1", "K3") else set())
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms"} | more
@@ -83,6 +85,18 @@ def test_phases_run_on_cpu_small_rig(capsys):
         for what in ("checkerboard", "band seams", "too large for a cluster",
                      "small", "dense random image", "crossing column sweeps"):
             assert f"{name} {what}" in out
+    for what in ("all masks empty", "all masks full", "views_threshold 3 of 4",
+                 "random masks, threshold 2", "32^3 grid, colour camera 2",
+                 "32^3 grid, 3 cameras"):
+        assert f"ok: K1 {what}: occupancy and colours bit-equal" in out
+    for what in ("random frames on the mid-training state", "K = 3, 37x53",
+                 "K = 1, 37x53", "37x53, a single frame",
+                 "37x53, chunk 2 of two in a row",
+                 "37x53, the state handed over without its mark"):
+        assert f"ok: K3 {what}" in out
+    assert "K3: random frames drive a pixel to" in out
+    assert report["clock"] == {"launch_floor_ms": None,
+                               "k1_ms_zeroing_flush": None}
     assert "equal to process_frame_fast" in out
     assert report["offline"]["frames"] == 16
 
@@ -112,3 +126,64 @@ def test_crossing_sweeps_meet_inside_every_band():
         block = one[2 * bands + 4:, 32:128]
         assert int(block.min()) == int(block.max()) > spines[0]
         assert bool((two[2 * bands + 4:, 32:128] == spines[-1]).all())
+
+
+def _chip_smoke():
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke
+
+
+def test_timed_ms_on_the_cpu_is_the_host_clock_around_fn():
+    """On the CPU the clock keeps its meaning: one warm-up call, then
+    ``reps`` calls of ``fn(setup())`` with the flush before each and only
+    ``fn`` inside the interval; the median comes back in ms."""
+    import time
+
+    chip_smoke = _chip_smoke()
+    calls = []
+
+    def setup():
+        calls.append("setup")
+        time.sleep(0.02)  # not timed
+        return 7
+
+    def fn(x):
+        assert x == 7
+        calls.append("fn")
+        time.sleep(0.002)
+
+    ms = chip_smoke.timed_ms(fn, torch, torch.device("cpu"), reps=3,
+                             flush=lambda: calls.append("flush"), setup=setup)
+    assert calls == ["setup", "fn"] + ["setup", "flush", "fn"] * 3
+    assert 2.0 <= ms < 15.0
+    assert chip_smoke.timed_ms(lambda: None, torch, torch.device("cpu"),
+                               reps=2) < 1.0
+
+
+def test_random_chunk_drives_pixels_past_the_cached_slots():
+    """What the card check of K3's second residence depends on: on the
+    mid-training state, 16 frames of random colours leave some pixel with
+    more slots in use than the kernel keeps in shared memory."""
+    import numpy as np
+
+    chip_smoke = _chip_smoke()
+    from vbr_tpu_torch.ops import gmm
+    from vbr_tpu_torch.utils.config import MOGParams
+
+    rng = np.random.default_rng(3)
+    H, W = 12, 20
+    bg_hsv = rng.integers(60, 200, (H, W, 3)).astype(np.uint8)
+    p = MOGParams()
+    ts0 = chip_smoke.train_state_from_mog(
+        chip_smoke.mog_state(rng, bg_hsv, torch), torch, p.history - 8)
+    assert int(gmm.slot_high_water(ts0.weight, ts0.sort_key).max()) == 3
+    frames = torch.from_numpy(chip_smoke.random_chunk(
+        rng, chip_smoke.TRAIN_CHUNK, H, W))
+    end = gmm.train_chunk_plain(ts0, frames, p)
+    mark = gmm.slot_high_water(end.weight, end.sort_key)
+    assert int(mark.max()) > gmm.K3_CACHE_SLOTS >= 7
+    assert int(mark.min()) >= 3

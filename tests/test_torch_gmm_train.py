@@ -85,7 +85,9 @@ def test_init_states_match():
     for init_j, init_t in ((jgmm.init_state, tgmm.init_state),
                            (jgmm.init_train_state, tgmm.init_train_state)):
         st_j, st_t = init_j((6, 10), pj), init_t((6, 10), pt)
-        assert st_t._fields == st_j._fields
+        # the port's training state also carries its high-water mark
+        extra = ("used",) if init_t is tgmm.init_train_state else ()
+        assert st_t._fields == st_j._fields + extra
         for a, b in zip(st_t, st_j):
             assert tuple(a.shape) == b.shape and not a.any()
             assert str(a.dtype).split(".")[1] == str(b.dtype)
@@ -287,3 +289,207 @@ def test_train_background_and_round_trip(tmp_path):
             assert torch.equal(getattr(a, name), getattr(b, name))
     with pytest.raises(ValueError, match="background sequences"):
         model.train_background(seqs[:2])
+
+
+# -- the kernel's design, as far as the CPU can hold it ------------------------
+#
+# K3 keeps a pixel's slots below a cap S in shared memory for a whole chunk
+# and the others in device memory, finds the slots in use through a mark
+# ``used`` that travels with the state, and never looks past it.  The model
+# below is the kernel's own sequential loop (``csrc/mog_train.cu``) in
+# numpy float32 scalars over two arrays, ``near`` (slots < S, what shared
+# memory holds) and ``far`` (the state in device memory).
+
+
+def _torch_sqrt(v):
+    """sqrt as the plain version takes it on this host.  PyTorch's CPU
+    sqrt need not be the correctly rounded one that numpy and the card's
+    ``sqrtf`` give (a build with AVX-512 returns 48.631264 for 2365.0,
+    which rounds correctly to 48.631268), so the model borrows it."""
+    return torch.sqrt(torch.tensor([v], dtype=torch.float32)).numpy()[0]
+
+
+def _kernel_model(state, frames, params, S):
+    """(state arrays after the chunk, carried mark, slots that a bubble
+    moved across the S boundary).  ``near`` starts as NaN and ``far`` is
+    poisoned with NaN below min(used, S) once loaded, so a read of what
+    the kernel would not hold there shows in the result."""
+    f32 = np.float32
+    w, key = state.weight.numpy().copy(), state.sort_key.numpy().copy()
+    mu, var = state.mean.numpy().copy(), state.var.numpy().copy()
+    K, P = w.shape
+    S = min(S, K)
+    used_all = (state.used if state.used is not None else
+                tgmm.slot_high_water(state.weight, state.sort_key)).numpy()
+    used_all = used_all.copy()
+    far = [w, key, mu[0], mu[1], mu[2], var[0], var[1], var[2]]
+    eps, w0 = f32(tgmm.FLT_EPSILON), f32(tgmm.INITIAL_WEIGHT)
+    var0 = f32(4.0 * tgmm.DEFAULT_NOISE_SIGMA**2)
+    sk0 = f32(tgmm.INITIAL_WEIGHT / (2.0 * tgmm.DEFAULT_NOISE_SIGMA))
+    vt, min_var = f32(params.match_sigma**2), f32(params.noise_sigma**2)
+    nf0 = int(state.nframes)
+    T = frames.shape[0]
+    xs = frames.reshape(T, P, 3).astype(f32)
+    crossings = 0
+    for pix in range(P):
+        used = int(used_all[pix])
+        near = np.full((8, S), np.nan, f32)
+        for k in range(min(used, S)):
+            for f in range(8):
+                near[f, k] = far[f][k, pix]
+                far[f][k, pix] = np.nan
+
+        def get(f, k):
+            return near[f, k] if k < S else far[f][k, pix]
+
+        def put(f, k, v):
+            if k < S:
+                near[f, k] = v
+            else:
+                far[f][k, pix] = v
+
+        for t in range(T):
+            x = xs[t, pix]
+            alpha = f32(1.0) / f32(min(nf0 + t + 1, params.history))
+            c, k = -1, 0
+            while k < used:
+                wk = get(0, k)
+                if wk < eps:
+                    break
+                m = [get(2 + i, k) for i in range(3)]
+                v = [get(5 + i, k) for i in range(3)]
+                d = [x[i] - m[i] for i in range(3)]
+                dist2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+                varsum = (v[0] + v[1]) + v[2]
+                if dist2 < vt * varsum:
+                    c = k
+                    break
+                k += 1
+            if c >= 0:
+                wn = wk + alpha * (f32(1.0) - wk)
+                kn = wn / _torch_sqrt(varsum)
+                p = 0
+                for j in range(c - 1, -1, -1):
+                    if get(1, j) >= kn:
+                        p = j + 1
+                        break
+                for j in range(c, p, -1):
+                    crossings += j == S
+                    for f in range(8):
+                        put(f, j, get(f, j - 1))
+                put(0, p, wn)
+                put(1, p, kn)
+                for i in range(3):
+                    put(2 + i, p, m[i] + alpha * d[i])
+                    put(5 + i, p, max(v[i] + alpha * (d[i] * d[i] - v[i]),
+                                      min_var))
+            else:
+                r = min(k, K - 1)
+                put(0, r, w0)
+                put(1, r, sk0)
+                for i in range(3):
+                    put(2 + i, r, x[i])
+                    put(5 + i, r, var0)
+                used = max(used, r + 1)
+            total = get(0, 0)
+            for j in range(1, used):
+                total = total + get(0, j)
+            scale = f32(1.0) / total
+            for j in range(used):
+                put(0, j, get(0, j) * scale)
+                put(1, j, get(1, j) * scale)
+        for k in range(min(used, S)):
+            for f in range(8):
+                far[f][k, pix] = near[f, k]
+        used_all[pix] = used
+    return (w, key, mu, var), used_all, crossings
+
+
+def _design_case(K, start, seed=21):
+    """(state, two chunks of frames, params) at a tiny size: from zeros,
+    from a mid-training state, and from one handed over without its mark."""
+    rng = np.random.default_rng(seed)
+    H, W = 3, 8
+    _, pt = _params(history=9, use_hsv=False, n_mixtures=K)
+    frames = _anchored_frames(rng, 18, H, W)
+    state = tgmm.init_train_state((H, W), pt)
+    if start != "zeros":
+        warm = torch.from_numpy(_anchored_frames(rng, 7, H, W))
+        state = tgmm.train_chunk_plain(state, warm, pt)
+        assert state.used is None  # the plain version keeps no mark
+        if start == "mid":
+            state = state._replace(used=tgmm.slot_high_water(
+                state.weight, state.sort_key))
+    return state, (frames[:11], frames[11:]), pt
+
+
+@pytest.mark.parametrize("start", ["zeros", "mid", "no_mark"])
+@pytest.mark.parametrize("K", [1, 3, 50])
+def test_carried_mark_equals_recomputed(K, start):
+    """After every chunk the mark that the kernel's loop carries equals
+    the one recomputed from the plain version's state, and the state
+    itself is the plain version's, bit for bit."""
+    state, chunks, pt = _design_case(K, start)
+    for frames in chunks:
+        want = tgmm.train_chunk_plain(state, torch.from_numpy(frames), pt)
+        arrays, used, _ = _kernel_model(state, frames, pt, S=2)
+        mark = tgmm.slot_high_water(want.weight, want.sort_key)
+        np.testing.assert_array_equal(used, mark.numpy())
+        assert mark.dtype == torch.int32 and int(mark.max()) == min(
+            K, int(mark.max()))
+        for got, name in zip(arrays, ("weight", "sort_key", "mean", "var")):
+            np.testing.assert_array_equal(got, getattr(want, name).numpy(),
+                                          err_msg=name)
+        state = want._replace(used=torch.from_numpy(used))
+    assert int(state.nframes) == (18 if start == "zeros" else 25)
+    if K == 50:
+        assert int(state.used.max()) >= 8  # the 9 anchors fill their slots
+
+
+@pytest.mark.parametrize("S", [1, 2, 8])
+def test_two_residences_equal_plain(S):
+    """Slots below S in one array, the others in a second: the same bits
+    as the plain version, with slots that a bubble carries across the S
+    boundary."""
+    rng = np.random.default_rng(22 + S)
+    H, W = 4, 12
+    _, pt = _params(history=30, use_hsv=False, n_mixtures=50)
+    state = tgmm.init_train_state((H, W), pt)
+    frames = _anchored_frames(rng, 48, H, W)
+    want = tgmm.train_chunk_plain(state, torch.from_numpy(frames), pt)
+    arrays, used, crossings = _kernel_model(state, frames, pt, S)
+    assert crossings > 0
+    assert int(used.max()) > S
+    for got, name in zip(arrays, ("weight", "sort_key", "mean", "var")):
+        np.testing.assert_array_equal(got, getattr(want, name).numpy(),
+                                      err_msg=name)
+    np.testing.assert_array_equal(
+        used, tgmm.slot_high_water(want.weight, want.sort_key).numpy())
+
+
+@pytest.mark.parametrize("with_mark", [True, False])
+def test_train_state_round_trip_and_five_arrays(with_mark):
+    """The JAX package's training state goes into the port (which adds the
+    mark) and back (which drops it); five arrays still make a state."""
+    rng = np.random.default_rng(23)
+    H, W = 4, 16
+    pj, pt = _params(history=6, use_hsv=False, n_mixtures=5)
+    mid_j, _ = jgmm._train_chunk(jgmm.init_train_state((H, W), pj),
+                                 jnp.asarray(_anchored_frames(rng, 6, H, W)),
+                                 pj, False)
+    mid_np = jgmm.MOGTrainState(*(np.asarray(a) for a in mid_j))
+    mid_t = tart.train_state_from_numpy(mid_np)
+    assert torch.equal(mid_t.used, tgmm.slot_high_water(mid_t.weight,
+                                                        mid_t.sort_key))
+    assert 1 <= int(mid_t.used.min()) and int(mid_t.used.max()) <= 5
+    if not with_mark:
+        mid_t = tgmm.MOGTrainState(*mid_t[:5])
+        assert mid_t.used is None
+    back = tart.train_state_to_numpy(mid_t)
+    assert set(vars(back)) == set(mid_np._fields)
+    again = jgmm.MOGTrainState(**vars(back))
+    for a, b in zip(again, mid_np):
+        np.testing.assert_array_equal(a, b)
+    frames = torch.from_numpy(_anchored_frames(rng, 3, H, W))
+    end = tgmm.train_chunk_kernel(mid_t, frames, pt)  # plain on the CPU
+    assert end.used is None and int(end.nframes) == 9

@@ -17,25 +17,74 @@
 // (16 B at C=4), its colour column (4 B) and writes 4 B; at 128^3 that is
 // ~42 MB of tables + 8 MB of outputs, ~15 us at 3.35 TB/s if every block
 // were active.  The masks (C*H*W bytes, 1.25 MB) and the colour frame
-// (0.9 MB) stay in L2 and are read by a direct byte gather.
+// (0.9 MB) stay in L2 and are read by a direct byte gather.  A production
+// frame has one sub-block in seven active: the outputs are the largest
+// stream, and what an active block costs is memory latency.
 //
-// Design: one CTA per sub-block, one thread per voxel (512 threads), so
-// table reads are fully coalesced (a warp reads 128 contiguous bytes of
-// pk per camera).  The TPU kernel's one-hot bf16 MXU contraction and its
-// 8-column bit-packed masks were workarounds for a machine without a
-// gather; here the mask byte is read directly.  Inactive sub-blocks read
-// nothing but their two flags and write zeros; full ones skip the mask
-// reads.  Colours are gathered only for occupied voxels, which yields the
-// same bytes as the TPU kernel's "gather when the block max reaches the
-// threshold, mask by occupancy afterwards".
+// Design (the TPU kernel's one-hot bf16 MXU contraction and its 8-column
+// bit-packed masks were workarounds for a machine without a gather; here
+// the mask byte is read directly):
+//
+//  * Persistent CTAs.  The grid is what the card holds at once (SMs x CTAs
+//    per SM from the occupancy calculator, at most nblk) and does not grow
+//    with the grid of voxels; CTA i takes sub-blocks i, i + G, i + 2G, ...,
+//    which spreads the active ones (they cluster around the subject).
+//  * Four voxels per thread, 128 threads per sub-block: pk is one int4 per
+//    camera and thread (a warp reads 512 contiguous bytes), lcc one int4,
+//    occ and each colour plane one 32-bit store (byte e = voxel 4v + e); an
+//    inactive sub-block is one 16-byte store of zeros from each thread.
+//  * Every load in flight at once.  A CTA reads its flags in one go, then
+//    starts the copies of its first active sub-blocks' tables into a ring
+//    of kStages stages of shared memory (16-byte cp.async: each thread
+//    copies exactly the words it will use itself, so the ring needs no
+//    block barrier and no mbarrier), zero-fills its inactive sub-blocks
+//    while those copies fly, and then consumes stage after stage, starting
+//    the next copy as a stage frees.  A full sub-block copies the colour
+//    camera's words only.
+//  * The number of cameras is a template parameter for the rig's C = 4, so
+//    all 4 x C mask bytes of a thread are independent loads after one wait;
+//    any other C takes the same kernel with a run-time loop.  The launcher
+//    picks by C alone.  The colour camera's words come from the stage that
+//    the count read: no second read from device memory.
+//  * Colours are gathered only for occupied voxels, which yields the same
+//    bytes as the TPU kernel's "gather when the block max reaches the
+//    threshold, mask by occupancy afterwards".
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kBV = 512;
+constexpr int kThreads = kBV / 4;  // four voxels per thread
+constexpr int kStages = 2;         // table copies in flight per CTA
+constexpr int kStaticC = 4;        // the rig's camera count
+constexpr int kInvalidRow = 1023;
 
-__global__ void __launch_bounds__(kBV) carve_blocked_kernel(
+__device__ __forceinline__ void cp_async16(int4* smem, const int4* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+
+// 1 when the packed word's projection is valid and its mask byte is set
+__device__ __forceinline__ int mask_hit(const uint8_t* __restrict__ masks_c,
+                                        int p, int W) {
+  const int row = p >> 10;
+  const bool valid = row != kInvalidRow;
+  const int x = ((p >> 3) & 127) * 8 + (p & 7);
+  const uint8_t m = masks_c[valid ? row * W + x : 0];
+  return (valid && m != 0) ? 1 : 0;
+}
+
+// CS > 0: the number of cameras, fixed at compile time; 0: C at run time.
+template <int CS>
+__global__ void __launch_bounds__(kThreads) carve_blocked_kernel(
     const int32_t* __restrict__ pk,      // (nblk, C, BV)
     const int32_t* __restrict__ lcc,     // (nblk, BV) colour column, -1 invalid
     const int32_t* __restrict__ active,  // (nblk,)
@@ -44,40 +93,188 @@ __global__ void __launch_bounds__(kBV) carve_blocked_kernel(
     const uint8_t* __restrict__ image,   // (H, W, 3) BGR colour-camera frame
     uint8_t* __restrict__ occ,           // (nblk, BV)
     uint8_t* __restrict__ col,           // (nblk, 3, BV)
-    int C, int H, int W, int color_camera, int views_threshold) {
-  const size_t b = blockIdx.x;
-  const int v = threadIdx.x;
-  const int act = active[b];
-  const int is_full = full[b];
-  int count = 0;
-  if (is_full) {
-    count = C;
-  } else if (act) {
-    for (int c = 0; c < C; ++c) {
-      const int p = pk[(b * C + c) * kBV + v];
-      const int row = p >> 10;
-      if (row != 1023) {
-        const int x = ((p >> 3) & 127) * 8 + (p & 7);
-        count += masks[((size_t)c * H + row) * W + x] != 0;
+    int nblk, int C_rt, int H, int W, int color_camera, int views_threshold) {
+  extern __shared__ int4 ring[];          // [kStages][C + 1][kThreads]
+  __shared__ uint8_t s_kind[kThreads];    // 0 inactive, 1 count, 2 full
+  const int C = CS > 0 ? CS : C_rt;
+  const int tid = threadIdx.x;
+  const int G = gridDim.x;
+  const int stage_stride = (C + 1) * kThreads;
+  int4* const mine = ring + tid;
+  const size_t plane = (size_t)H * W;
+  // this CTA's sub-blocks are blockIdx.x + j * G, j < n_own
+  const int n_own = (nblk - (int)blockIdx.x + G - 1) / G;
+
+  for (int base = 0; base < n_own; base += kThreads) {
+    const int n = min(kThreads, n_own - base);
+    auto block_of = [&](int j) {
+      return (size_t)blockIdx.x + (size_t)(base + j) * G;
+    };
+    if (tid < n) {
+      const size_t b = block_of(tid);
+      s_kind[tid] = active[b] > 0 ? (full[b] > 0 ? 2 : 1) : 0;
+    }
+    __syncthreads();
+
+    // the next active sub-block of this round, or -1
+    int next = 0;
+    auto next_active = [&]() {
+      while (next < n && s_kind[next] == 0) ++next;
+      return next < n ? next++ : -1;
+    };
+    // start the copy of sub-block j's tables into a stage; every call is
+    // one cp.async group, an empty one for j < 0, so that the group that
+    // a wait has to leave pending is always the same number
+    auto start_copy = [&](int j, int stage) {
+      if (j >= 0) {
+        const size_t b = block_of(j);
+        int4* dst = mine + stage * stage_stride;
+        const int4* src = reinterpret_cast<const int4*>(pk + b * C * kBV) + tid;
+        if (s_kind[j] == 1) {
+          if constexpr (CS > 0) {
+#pragma unroll
+            for (int c = 0; c < CS; ++c) {
+              cp_async16(dst + c * kThreads, src + c * kThreads);
+            }
+          } else {
+            for (int c = 0; c < C; ++c) {
+              cp_async16(dst + c * kThreads, src + c * kThreads);
+            }
+          }
+        } else {
+          cp_async16(dst + color_camera * kThreads,
+                     src + color_camera * kThreads);
+        }
+        cp_async16(dst + C * kThreads,
+                   reinterpret_cast<const int4*>(lcc + b * kBV) + tid);
       }
+      cp_async_commit();
+    };
+
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) start_copy(next_active(), st);
+
+    // inactive sub-blocks: 512 B of occ and 1536 B of col, all zero
+    for (int j = 0; j < n; ++j) {
+      if (s_kind[j] != 0) continue;
+      const size_t b = block_of(j);
+      int4* dst = tid < kThreads / 4
+                      ? reinterpret_cast<int4*>(occ + b * kBV) + tid
+                      : reinterpret_cast<int4*>(col + b * 3 * kBV) +
+                            (tid - kThreads / 4);
+      *dst = make_int4(0, 0, 0, 0);
     }
-  }
-  const bool o = act && count >= views_threshold;
-  uint8_t cb = 0, cg = 0, cr = 0;
-  if (o) {
-    const int row = pk[(b * C + color_camera) * kBV + v] >> 10;
-    const int x = lcc[b * kBV + v];
-    if (row != 1023 && x >= 0) {
-      const uint8_t* px = image + ((size_t)row * W + x) * 3;
-      cb = px[0];
-      cg = px[1];
-      cr = px[2];
+
+    int stage = 0;
+    for (int j = 0; j < n; ++j) {
+      const int kind = s_kind[j];
+      if (kind == 0) continue;
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+      const int4* src = mine + stage * stage_stride;
+      int cnt[4] = {C, C, C, C};
+      if (kind == 1) {
+        cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
+        if constexpr (CS > 0) {
+          int4 p[CS];
+#pragma unroll
+          for (int c = 0; c < CS; ++c) p[c] = src[c * kThreads];
+#pragma unroll
+          for (int c = 0; c < CS; ++c) {
+            const uint8_t* mc = masks + c * plane;
+            cnt[0] += mask_hit(mc, p[c].x, W);
+            cnt[1] += mask_hit(mc, p[c].y, W);
+            cnt[2] += mask_hit(mc, p[c].z, W);
+            cnt[3] += mask_hit(mc, p[c].w, W);
+          }
+        } else {
+          for (int c = 0; c < C; ++c) {
+            const int4 p = src[c * kThreads];
+            const uint8_t* mc = masks + c * plane;
+            cnt[0] += mask_hit(mc, p.x, W);
+            cnt[1] += mask_hit(mc, p.y, W);
+            cnt[2] += mask_hit(mc, p.z, W);
+            cnt[3] += mask_hit(mc, p.w, W);
+          }
+        }
+      }
+      const int4 pc4 = src[color_camera * kThreads];
+      const int4 lc4 = src[C * kThreads];
+      const int pc[4] = {pc4.x, pc4.y, pc4.z, pc4.w};
+      const int lc[4] = {lc4.x, lc4.y, lc4.z, lc4.w};
+      uint32_t ow = 0, cb = 0, cg = 0, cr = 0;  // byte e = voxel 4 * tid + e
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool o = cnt[e] >= views_threshold;
+        const int row = pc[e] >> 10;
+        if (o && row != kInvalidRow && lc[e] >= 0) {
+          const uint8_t* px = image + ((size_t)row * W + lc[e]) * 3;
+          cb |= (uint32_t)px[0] << (8 * e);
+          cg |= (uint32_t)px[1] << (8 * e);
+          cr |= (uint32_t)px[2] << (8 * e);
+        }
+        ow |= (o ? 1u : 0u) << (8 * e);
+      }
+      const size_t b = block_of(j);
+      reinterpret_cast<uint32_t*>(occ + b * kBV)[tid] = ow;
+      uint32_t* cw = reinterpret_cast<uint32_t*>(col + b * 3 * kBV) + tid;
+      cw[0] = cb;
+      cw[kThreads] = cg;
+      cw[2 * kThreads] = cr;
+      // this thread has read its words of the stage: it may be refilled
+      start_copy(next_active(), stage);
+      stage = stage + 1 == kStages ? 0 : stage + 1;
     }
+    __syncthreads();  // s_kind is rewritten in the next round
   }
-  occ[b * kBV + v] = o ? 1 : 0;
-  col[(b * 3 + 0) * kBV + v] = cb;
-  col[(b * 3 + 1) * kBV + v] = cg;
-  col[(b * 3 + 2) * kBV + v] = cr;
+}
+
+// Returns at once: its time between two events is what any launch costs.
+__global__ void empty_kernel() {}
+
+struct Plan {
+  int status;    // a cudaError_t
+  int c_static;  // 1: the kernel instantiated for C cameras; 0: run-time C
+  int smem;      // dynamic shared memory per CTA, bytes
+  int per_sm;    // CTAs an SM holds
+  int blocks;    // CTAs launched
+};
+
+template <int CS>
+Plan plan_for(int nblk, int C) {
+  Plan p = {};
+  p.c_static = CS > 0;
+  p.smem = kStages * (C + 1) * kThreads * (int)sizeof(int4);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(carve_blocked_kernel<CS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               p.smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p.per_sm, carve_blocked_kernel<CS>, kThreads, p.smem);
+  }
+  if (err == cudaSuccess && p.per_sm < 1) err = cudaErrorInvalidValue;
+  p.status = static_cast<int>(err);
+  if (err == cudaSuccess) {
+    const long long resident = (long long)sms * p.per_sm;
+    p.blocks = (int)(nblk < resident ? nblk : resident);
+  }
+  return p;
+}
+
+Plan plan_launch(int nblk, int C, int H, int W, int color_camera) {
+  if (nblk < 0 || C < 1 || H < 1 || W < 1 || color_camera < 0 ||
+      color_camera >= C) {
+    Plan p = {};
+    p.status = static_cast<int>(cudaErrorInvalidValue);
+    return p;
+  }
+  return C == kStaticC ? plan_for<kStaticC>(nblk, C) : plan_for<0>(nblk, C);
 }
 
 }  // namespace
@@ -88,16 +285,36 @@ const char* vbr_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
+int vbr_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..3] = C fixed at compile time (0/1), shared bytes per CTA, CTAs per
+// SM, CTAs launched: what vbr_carve_blocked would launch for this shape.
+int vbr_carve_blocked_plan(int nblk, int C, int* out) {
+  const Plan p = plan_launch(nblk, C, 1, 1, 0);
+  out[0] = p.c_static;
+  out[1] = p.smem;
+  out[2] = p.per_sm;
+  out[3] = p.blocks;
+  return p.status;
+}
+
 int vbr_carve_blocked(const int32_t* pk, const int32_t* lcc,
                       const int32_t* active, const int32_t* full,
                       const uint8_t* masks, const uint8_t* image,
                       uint8_t* occ, uint8_t* col, int nblk, int C, int H,
                       int W, int color_camera, int views_threshold,
                       void* stream) {
+  const Plan p = plan_launch(nblk, C, H, W, color_camera);
+  if (p.status != 0) return p.status;
   if (nblk > 0) {
-    carve_blocked_kernel<<<nblk, kBV, 0, static_cast<cudaStream_t>(stream)>>>(
-        pk, lcc, active, full, masks, image, occ, col, C, H, W, color_camera,
-        views_threshold);
+    auto kernel = p.c_static ? carve_blocked_kernel<kStaticC>
+                             : carve_blocked_kernel<0>;
+    kernel<<<p.blocks, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+        pk, lcc, active, full, masks, image, occ, col, nblk, C, H, W,
+        color_camera, views_threshold);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -249,8 +249,9 @@ def carve_blocked_kernel(pk, lcc, active, full, masks, image, *,
     """Kernel K1: blocked tables + flags + masks + colour frame →
     (occ_b (nsuper, nsub, BV) u8 0/1, col_b (nsuper, nsub, 3, BV) u8 BGR).
 
-    CUDA tensors launch ``csrc/carve_blocked.cu``; CPU tensors run
-    :func:`carve_blocked_plain`."""
+    CUDA tensors launch ``csrc/carve_blocked.cu`` (persistent CTAs, four
+    voxels per thread: byte e of an output word is voxel 4v + e); CPU
+    tensors run :func:`carve_blocked_plain`."""
     if pk.device.type == "cpu":
         return carve_blocked_plain(pk, lcc, active, full, masks, image,
                                    color_camera=color_camera,
@@ -269,12 +270,29 @@ def carve_blocked_kernel(pk, lcc, active, full, masks, image, *,
     check(image, "image", torch.uint8, (H, W, 3), dev)
     if not 0 <= color_camera < C:
         raise ValueError(f"color_camera {color_camera} out of range")
+    for name, t in (("pk", pk), ("lcc", lcc)):
+        if t.data_ptr() % 16:  # the kernel reads them as 16-byte words
+            raise ValueError(f"{name} must be 16-byte aligned")
     occ = torch.empty((nsuper, nsub, BV), dtype=torch.uint8, device=dev)
     col = torch.empty((nsuper, nsub, 3, BV), dtype=torch.uint8, device=dev)
     K1.launch(ptr(pk), ptr(lcc), ptr(active), ptr(full), ptr(masks),
               ptr(image), ptr(occ), ptr(col), nblk, C, H, W,
               int(color_camera), int(views_threshold))
     return occ, col
+
+
+def k1_launch_plan(nblk: int, C: int) -> dict:
+    """What K1 launches for ``nblk`` sub-blocks and ``C`` cameras on the
+    current CUDA device: whether C is fixed at compile time, shared bytes
+    per CTA, CTAs per SM and CTAs (a grid that does not grow with nblk)."""
+    fn = K1.function("vbr_carve_blocked_plan",
+                     [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 4)()
+    K1.status_ok(fn(nblk, C, out), "vbr_carve_blocked_plan")
+    plan = dict(zip(("c_static", "shared_bytes_per_cta", "ctas_per_sm",
+                     "ctas"), out))
+    plan["c_static"] = bool(plan["c_static"])
+    return plan
 
 
 def carve_blocked_plain(pk, lcc, active, full, masks, image, *,

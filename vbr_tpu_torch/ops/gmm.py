@@ -7,7 +7,9 @@ compression ``compress_frozen`` + ``apply_frozen_compressed`` that the
 per-frame step runs.  Train side: ``MOGTrainState`` (pixel axis minor),
 the OpenCV-exact per-frame update ``_update_arrays``, the multi-frame loop
 ``_train_chunk``, kernel K3 (``train_chunk_kernel``: a whole chunk of
-frames per launch, ``csrc/mog_train.cu``) and ``train_mog``.  MOG2 and KNN
+frames per launch, ``csrc/mog_train.cu``, a pixel's used slots in shared
+memory for the chunk, found through the carried ``used`` mark) and
+``train_mog``.  MOG2 and KNN
 training are not ported yet.
 
 The compressed apply is exact: a pixel is background iff some slot
@@ -38,10 +40,14 @@ DEFAULT_NOISE_SIGMA = 15.0  # OpenCV bgsegm defaultNoiseSigma = 30·0.5
 # package does; a fused multiply-add would change the last bit.
 K3 = CudaKernel(
     "mog_train.cu", "vbr_mog_train",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_int, ctypes.c_void_p],
     extra_flags=("-fmad=false",),
 )
+# Slots of a pixel that K3 keeps in shared memory for a whole chunk (the
+# others stay in device memory): CACHE_SLOTS * 2 KB per CTA of 64 pixels.
+# Measured fastest of 4-16 on an H100 for a state of ~3 slots per pixel.
+K3_CACHE_SLOTS = 7
 
 
 class MOGState(NamedTuple):
@@ -149,6 +155,12 @@ class MOGTrainState(NamedTuple):
     mean: torch.Tensor  # (3, K, HW) f32
     var: torch.Tensor  # (3, K, HW) f32 — per-channel variance
     nframes: torch.Tensor  # () int32
+    # (HW,) int32 high-water mark, or None (not known): every slot at or
+    # past used[pixel] holds weight 0 and sort key 0 (:func:`slot_high_water`).
+    # Kernel K3 reads and raises it in place; the plain version neither
+    # needs nor keeps it and returns None.  The JAX package's state has no
+    # such field.
+    used: Optional[torch.Tensor] = None
 
 
 def init_state(shape_hw, params: MOGParams, device="cpu") -> MOGState:
@@ -173,7 +185,20 @@ def init_train_state(shape_hw, params: MOGParams,
         mean=torch.zeros((3, K, hw), dtype=torch.float32, device=device),
         var=torch.zeros((3, K, hw), dtype=torch.float32, device=device),
         nframes=torch.zeros((), dtype=torch.int32, device=device),
+        used=torch.zeros((hw,), dtype=torch.int32, device=device),
     )
+
+
+def slot_high_water(weight: torch.Tensor,
+                    sort_key: torch.Tensor) -> torch.Tensor:
+    """(K, HW) weights and sort keys → (HW,) int32: one past the last slot
+    whose weight or key is not 0 (0 for an empty pixel).  The update
+    leaves every slot at or past it as it is, and only a replacement
+    raises it."""
+    K = weight.shape[0]
+    k1 = torch.arange(1, K + 1, dtype=torch.int32,
+                      device=weight.device).reshape(K, 1)
+    return torch.where((weight != 0) | (sort_key != 0), k1, 0).amax(dim=0)
 
 
 def _shift_down(arr: torch.Tensor, k_axis: int) -> torch.Tensor:
@@ -345,13 +370,23 @@ def train_chunk_kernel(state: MOGTrainState, frames_conv: torch.Tensor,
 
     ``frames_conv`` (T, H, W, 3) u8, already colour-converted.  CUDA
     tensors launch ``csrc/mog_train.cu``, which updates the four state
-    arrays IN PLACE (the returned state shares them); CPU tensors run
-    :func:`train_chunk_plain`, which allocates new ones."""
+    arrays and ``used`` IN PLACE (the returned state shares them; a state
+    that comes with ``used=None`` gets it from :func:`slot_high_water`);
+    CPU tensors run :func:`train_chunk_plain`, which allocates new arrays
+    and returns ``used=None``."""
     dev = state.weight.device
     if dev.type == "cpu":
         return train_chunk_plain(state, frames_conv, params)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    return _launch_k3(state, frames_conv, params, K3_CACHE_SLOTS)
+
+
+def _launch_k3(state: MOGTrainState, frames_conv: torch.Tensor,
+               params: MOGParams, cache_slots: int) -> MOGTrainState:
+    """Launch K3 with ``cache_slots`` slots per pixel in shared memory.
+    The result does not depend on ``cache_slots``, only the time does."""
+    dev = state.weight.device
     T, H, W, _ = frames_conv.shape
     K, hw = state.weight.shape
     check(frames_conv, "frames_conv", torch.uint8, (T, H, W, 3), dev)
@@ -360,12 +395,31 @@ def train_chunk_kernel(state: MOGTrainState, frames_conv: torch.Tensor,
     check(state.mean, "mean", torch.float32, (3, K, hw), dev)
     check(state.var, "var", torch.float32, (3, K, hw), dev)
     check(state.nframes, "nframes", torch.int32, (), dev)
+    used = state.used
+    if used is None:
+        used = slot_high_water(state.weight, state.sort_key)
+    check(used, "used", torch.int32, (hw,), dev)
+    if T == 0 or hw == 0:
+        return state._replace(nframes=state.nframes + T, used=used)
+    nframes = torch.empty_like(state.nframes)
     K3.launch(ptr(frames_conv), ptr(state.weight), ptr(state.sort_key),
               ptr(state.mean), ptr(state.var), ptr(state.nframes),
-              T, K, hw, int(params.history),
+              ptr(nframes), ptr(used), T, K, hw, int(params.history),
               float(np.float32(params.match_sigma**2)),
-              float(np.float32(params.noise_sigma**2)))
-    return state._replace(nframes=state.nframes + T)
+              float(np.float32(params.noise_sigma**2)), int(cache_slots))
+    return state._replace(nframes=nframes, used=used)
+
+
+def k3_launch_plan(K: int, hw: int,
+                   cache_slots: int = K3_CACHE_SLOTS) -> dict:
+    """What K3 launches for a (K, hw) state on the current CUDA device:
+    cached slots, shared bytes per CTA, CTAs an SM holds, CTAs."""
+    fn = K3.function("vbr_mog_train_plan",
+                     [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 4)()
+    K3.status_ok(fn(K, hw, cache_slots, out), "vbr_mog_train_plan")
+    keys = ("cache_slots", "shared_bytes_per_cta", "ctas_per_sm", "ctas")
+    return dict(zip(keys, out))
 
 
 def train_mog(frames, params: MOGParams = MOGParams(), chunk: int = 16,

@@ -16,7 +16,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from vbr_tpu_torch.ops.gmm import MOGState, MOGTrainState
+from vbr_tpu_torch.ops.gmm import (MOGState, MOGTrainState,
+                                   slot_high_water)
 
 
 def from_numpy_state(state, device="cpu") -> MOGState:
@@ -40,22 +41,25 @@ def train_state_from_numpy(state, device="cpu") -> MOGTrainState:
     """Any object with ``weight``/``sort_key``/``mean``/``var``/``nframes``
     array attributes in the training layout ((K, HW) / (3, K, HW); e.g.
     the JAX package's ``MOGTrainState`` after ``np.asarray``) → the port's
-    ``MOGTrainState`` on ``device``."""
+    ``MOGTrainState`` on ``device``, with the high-water mark ``used`` that
+    the port's state carries computed from the weights and keys."""
     def f32(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
+    weight, sort_key = f32(state.weight), f32(state.sort_key)
     return MOGTrainState(
-        weight=f32(state.weight), sort_key=f32(state.sort_key),
+        weight=weight, sort_key=sort_key,
         mean=f32(state.mean), var=f32(state.var),
         nframes=torch.tensor(int(np.asarray(state.nframes)),
                              dtype=torch.int32, device=device),
+        used=slot_high_water(weight, sort_key),
     )
 
 
 def train_state_to_numpy(state: MOGTrainState) -> SimpleNamespace:
     """The port's ``MOGTrainState`` as numpy arrays under the same field
     names (``nframes`` an int32 scalar), ready for the JAX package's
-    ``MOGTrainState(**vars(...))``."""
+    ``MOGTrainState(**vars(...))``, which has no ``used``: it is dropped."""
     return SimpleNamespace(
         weight=state.weight.cpu().numpy(),
         sort_key=state.sort_key.cpu().numpy(),
