@@ -48,7 +48,16 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      background frames per camera: K3 launches counted, a band of rows of
      one camera retrained by the plain version on the CPU, bit-equal;
  11. K4 (multi-frame carve) against its plain version on 8 frames of the
-     moving sphere: occupancy bit-equal, times, bound, active fraction;
+     moving sphere: occupancy bit-equal, times, bound, active fraction,
+     what it launches; then, bit-equal again and not timed, inputs the
+     production chunk does not reach: all masks empty, all full, random
+     masks, a view threshold of 3, a chunk full in one frame only, chunks
+     of 1, 5, 9 and 16 frames, and on a 32^3 grid the rig and a rig of 3
+     cameras; the kernel is run several times on each; and after phase 13
+     (it holds ~7 GB of the card) K4 at its limits: a chunk of more than
+     2^31 mask bytes bit-equal, 56 cameras taken and 57 refused.  Bounds
+     count the mask bytes at the counted sub-blocks' pixels (K1 and K4),
+     and K1's colour bytes at occupied voxels;
  12. the offline path, ``VisualHull.process_frames_offline`` over the 16
      frames on the trained model: per-frame occupancy and colours equal to
      ``process_frame_fast``; K4 launches counted, ms/frame;
@@ -75,6 +84,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -446,6 +456,158 @@ def hold_carve(torch, dev, cb, cams, image_hw, btab, masks, frame_d, vt):
     return worst
 
 
+def hold_frames(torch, dev, cb, cams, image_hw, btab, masks8, vt):
+    """Hold K4 against its plain version, occupancy bit-equal, on inputs the
+    production chunk does not reach: every sub-block inactive, every
+    sub-block with valid projections full, random masks, a lower view
+    threshold, a chunk that is full in one frame only, chunks of 1, 5, 9
+    and 16 frames (the frame group's tail, more frames than one group), and
+    on a 32^3 grid (fewer sub-blocks than the card holds CTAs) the rig and a
+    3-camera rig (the kernel with a run-time camera count).  The kernel is
+    run several times on each; returns the largest difference seen."""
+    from vbr_tpu_torch.utils.config import GridConfig
+
+    rng = np.random.default_rng(SEED + 17)
+    small = GridConfig(nx=32, ny=32, nz=32)
+    tab_s = cb.build_block_tables(cams, small, image_hw, device=dev)
+    tab_3 = cb.build_block_tables(cams[:3], small, image_hw, color_camera=0,
+                                  device=dev)
+    NF = masks8.shape[0]
+    noise = torch.from_numpy(
+        (rng.random(tuple(masks8.shape)) < 0.5).astype(np.uint8) * 255).to(dev)
+    one_full = masks8.clone()
+    one_full[NF // 2] = 255
+
+    def frames(n):  # frame i is masks8[i % NF]
+        return masks8[torch.arange(n, device=dev) % NF].contiguous()
+
+    cases = [
+        ("all masks empty", btab, torch.zeros_like(masks8), vt),
+        ("all masks full", btab, torch.full_like(masks8, 255), vt),
+        ("random masks, threshold 2", btab, noise, 2),
+        ("views_threshold 3 of 4", btab, masks8, 3),
+        ("full in one frame only", btab, one_full, vt),
+        ("NF = 1", btab, frames(1), vt),
+        ("NF = 5", btab, frames(5), vt),
+        ("NF = 9", btab, frames(9), vt),
+        ("NF = 16", btab, frames(16), vt),
+        ("32^3 grid", tab_s, masks8, vt),
+        ("32^3 grid, 3 cameras", tab_3, masks8[:, :3].contiguous(), 3),
+    ]
+    worst, kept = 0.0, {}
+    for what, tab, m, thr in cases:
+        active, full = cb.chunk_activity(m, tab, thr)
+        args = (tab.pk, active, full, m)
+        want = cb.carve_frames_plain(*args, views_threshold=thr)
+        for _ in range(KERNEL_RERUNS if dev.type == "cuda" else 1):
+            got = cb.carve_frames_kernel(*args, views_threshold=thr)
+            sync(torch, dev)
+            worst = max(worst, max_abs_err([(got, want)]))
+            if not torch.equal(got, want):
+                raise Failed(f"K4 {what}: differs from the plain version")
+        nblk = tab.nsuper * tab.nsub
+        plan = (cb.k4_launch_plan(nblk, tab.num_cameras, m.shape[0])
+                if dev.type == "cuda" else None)
+        kept[what] = dict(
+            nblk=nblk, frames=m.shape[0], active=int((active > 0).sum()),
+            full=int(((active > 0) & (full > 0)).sum()),
+            occupied=got.flatten(1).sum(dim=1).tolist(), plan=plan)
+        print(f"  ok: K4 {what}: occupancy bit-equal; {kept[what]}",
+              flush=True)
+    empty, allfg = kept["all masks empty"], kept["all masks full"]
+    expect(empty["active"] == 0 and not any(empty["occupied"]),
+           "K4: with empty masks no sub-block is active and no voxel set")
+    expect(min(allfg["occupied"]) >= allfg["full"] * cb.BV > 0
+           or dev.type == "cpu" and min(allfg["occupied"]) > 0,
+           "K4: with full masks the sub-blocks whose projections are all "
+           "valid are full and set every voxel in every frame")
+    one = kept["full in one frame only"]["occupied"]
+    expect(one[NF // 2] > max(one[:NF // 2] + one[NF // 2 + 1:]),
+           "K4: the frame that is all foreground sets the most voxels")
+    base = kept["views_threshold 3 of 4"]["occupied"]
+    prod = cb.carve_frames_plain(
+        btab.pk, *cb.chunk_activity(masks8, btab, vt), masks8,
+        views_threshold=vt).flatten(1).sum(dim=1).tolist()
+    expect(all(min(a, b) > 0 and a > b for a, b in zip(base, prod)),
+           "K4: a view threshold of 3 sets more voxels in every frame")
+    for n in (1, 5, 9, 16):
+        got_n = kept[f"NF = {n}"]["occupied"]
+        expect(got_n == [prod[i % NF] for i in range(n)],
+               f"K4: a chunk of {n} frames sets the voxels of its frames")
+    expect(min(kept["random masks, threshold 2"]["occupied"]) > 0
+           and min(kept["32^3 grid"]["occupied"]) > 0
+           and min(kept["32^3 grid, 3 cameras"]["occupied"]) > 0,
+           "K4: random masks and both 32^3 rigs set voxels in every frame")
+    if dev.type == "cuda":
+        few = kept["32^3 grid, 3 cameras"]
+        nblk, big = empty["nblk"], empty["plan"]
+        expect(big["c_static"] and big["nf_static"]
+               and not kept["NF = 9"]["plan"]["nf_static"]
+               and not few["plan"]["c_static"]
+               and few["plan"]["ctas"] == few["nblk"]
+               and big["ctas"] < nblk,
+               f"K4: the rig's camera count and the chunk of {NF} frames are "
+               f"compiled in, 9 frames and 3 cameras run the run-time loops; "
+               f"{few['nblk']} sub-blocks take as many CTAs, {nblk} take "
+               f"{big['ctas']}")
+    return worst
+
+
+def hold_frames_limits(torch, dev, cb):
+    """K4 at its limits, on the card: a chunk of more than 2^31 mask bytes
+    (514 frames of 4 x 1022 x 1023, random tables of 16 sub-blocks) held
+    bit-equal against the plain version, and the most cameras whose table
+    ring fits in shared memory (56) taken while 57 are refused, by the plan
+    and by the wrapper.  Returns the largest difference seen."""
+    NF, C, H, W, nblk = 514, 4, 1022, 1023, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    row = torch.randint(0, H, (1, nblk, C, cb.BV), generator=g, device=dev,
+                        dtype=torch.int32)
+    x = torch.randint(0, W, (1, nblk, C, cb.BV), generator=g, device=dev,
+                      dtype=torch.int32)
+    row[..., ::7] = cb.INVALID_ROW
+    pk = (row << 10) | ((x // cb.WORD_BITS) << 3) | (x % cb.WORD_BITS)
+    masks = torch.randint(0, 2, (NF, C, H, W), generator=g, device=dev,
+                          dtype=torch.uint8) * 255
+    active = torch.ones(nblk, dtype=torch.int32, device=dev)
+    full = torch.zeros_like(active)
+    active[5], full[3] = 0, 1
+    want = cb.carve_frames_plain(pk, active, full, masks, views_threshold=2)
+    worst = 0.0
+    for _ in range(KERNEL_RERUNS):
+        got = cb.carve_frames_kernel(pk, active, full, masks,
+                                     views_threshold=2)
+        sync(torch, dev)
+        worst = max(worst, max_abs_err([(got, want)]))
+        if not torch.equal(got, want):
+            raise Failed(f"K4 on {masks.numel()} mask bytes differs from the "
+                         "plain version")
+    occupied = got.flatten(1).sum(dim=1)
+    expect(masks.numel() > 2**31 and int(occupied[-1]) > 0,
+           f"K4 occupancy bit-equal on a chunk of {masks.numel()} mask bytes; "
+           f"occupied voxels in the last frame {int(occupied[-1])}")
+    del masks, want, got
+    torch.cuda.empty_cache()
+    plan = cb.k4_launch_plan(1, 56, OFFLINE_NF)
+    refused = []
+    for what, call in (
+            ("the plan", lambda: cb.k4_launch_plan(1, 57, OFFLINE_NF)),
+            ("the wrapper", lambda: cb.carve_frames_kernel(
+                torch.zeros((1, 1, 57, cb.BV), dtype=torch.int32, device=dev),
+                torch.ones(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros((1, 57, 8, 8), dtype=torch.uint8, device=dev),
+                views_threshold=2))):
+        try:
+            call()
+        except RuntimeError:
+            refused.append(what)
+    expect(plan["ctas"] == 1 and refused == ["the plan", "the wrapper"],
+           f"K4 takes 56 cameras ({plan['shared_bytes_per_cta']} B of "
+           f"shared memory per CTA) and {' and '.join(refused)} refuse 57")
+    return worst
+
+
 def clone_train_state(st):
     """A copy of a ``MOGTrainState`` for a kernel that updates in place."""
     return type(st)(*(a if a is None else a.clone() for a in st))
@@ -529,6 +691,68 @@ def hold_training(torch, dev, gmm, ts0, image_hw, params):
     return worst, deepest
 
 
+def seeded_rig(torch, image_hw, focal):
+    """What every phase draws from ``SEED``, in this order: the 4 cameras,
+    the background image, each camera's seeded MOG state, the first frame
+    and the ``STREAM_FRAMES`` frames of the stream.  Returns them with the
+    generator, which the later phases go on drawing from."""
+    from vbr_tpu_torch.ops.color import bgr_to_hsv_u8
+    from vbr_tpu_torch.utils.synthetic import synthetic_cameras, synthetic_rig
+
+    rng = np.random.default_rng(SEED)
+    cams = synthetic_cameras(4, image_hw=image_hw, f=focal)
+    bg = synthetic_rig(image_hw=image_hw)[2]
+    bg_hsv = bgr_to_hsv_u8(torch.from_numpy(bg)).numpy()
+    states = [mog_state(rng, bg_hsv[c], torch) for c in range(len(cams))]
+    center0 = np.array([100.0, -50.0, -700.0])
+    frame0 = paint_frame(rng, cams, bg, center0)
+    seq = [paint_frame(rng, cams, bg, center0 + [12.0 * i, -6.0 * i, 0.0])
+           for i in range(STREAM_FRAMES)]
+    return SimpleNamespace(rng=rng, cams=cams, bg=bg, states=states,
+                           image_hw=image_hw, center0=center0, frame0=frame0,
+                           seq=seq)
+
+
+def seeded_model(r, device, grid=None, mask_params=None):
+    """A ``VisualHull`` of the seeded rig ``r`` on ``device`` with its
+    seeded MOG states, its tables built."""
+    from vbr_tpu_torch.models.visual_hull import VisualHull
+    from vbr_tpu_torch.utils.config import (
+        DEFAULT_MASK_PARAMS, GridConfig, MOGParams, RigConfig)
+
+    m = VisualHull(r.cams, grid or GridConfig(),
+                   RigConfig(image_height=r.image_hw[0],
+                             image_width=r.image_hw[1]),
+                   mask_params or DEFAULT_MASK_PARAMS, device=device)
+    m.bg_states = r.states
+    m.mog_params = [MOGParams()] * len(r.cams)
+    m._ensure_fast_state()
+    m._ensure_btab()
+    return m
+
+
+def k4_chunk(torch, cb, model, seq):
+    """Phase 11's inputs: the masks of the first ``OFFLINE_NF`` frames of
+    ``seq`` on ``model`` and their chunk flags, (masks, active, full)."""
+    masks = torch.stack([model.masks(f) for f in seq[:OFFLINE_NF]])
+    active, full = cb.chunk_activity(masks, model._btab,
+                                     model.rig.views_threshold)
+    return masks, active, full
+
+
+def mask_bytes_read(torch, cb, pk, blocks, W):
+    """Distinct mask bytes that the valid projections of the sub-blocks
+    ``blocks`` (a bool per sub-block) address in one frame, summed over the
+    cameras: what a carve that reads only the counted sub-blocks' pixels
+    must read of each frame's masks."""
+    p = pk.flatten(0, 1)[blocks]  # (n, C, BV)
+    row = p >> 10
+    lin = row * W + ((p >> 3) & 127) * cb.WORD_BITS + (p & 7)
+    valid = row != cb.INVALID_ROW
+    return sum(int(torch.unique(lin[:, c][valid[:, c]]).numel())
+               for c in range(p.shape[1]))
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP):
@@ -548,7 +772,6 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     from vbr_tpu_torch.pipelines import background
     from vbr_tpu_torch.utils.config import (
         DEFAULT_MASK_PARAMS, GridConfig, MOGParams, RigConfig)
-    from vbr_tpu_torch.utils.synthetic import synthetic_cameras, synthetic_rig
 
     dev = torch.device(device)
     grid = grid or GridConfig()
@@ -567,29 +790,19 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
             print(f"  {k.source.name}: {' | '.join(usage) or 'cached'}")
 
     # -- rig, model, frames ---------------------------------------------
-    rng = np.random.default_rng(SEED)
-    cams = synthetic_cameras(4, image_hw=image_hw, f=focal)
-    bg = synthetic_rig(image_hw=image_hw)[2]
-    bg_hsv = bgr_to_hsv_u8(torch.from_numpy(bg)).numpy()
-    states = [mog_state(rng, bg_hsv[c], torch) for c in range(len(cams))]
+    r = seeded_rig(torch, image_hw, focal)
+    rng, cams, bg, states = r.rng, r.cams, r.bg, r.states
+    center0, frame0, seq = r.center0, r.frame0, r.seq
     rig = RigConfig(image_height=H, image_width=W)
 
     def model_on(d):
-        m = VisualHull(cams, grid, rig, mask_params or DEFAULT_MASK_PARAMS,
-                       device=d)
-        m.bg_states = states
-        m.mog_params = [MOGParams()] * len(cams)
-        m._ensure_fast_state()
-        m._ensure_btab()
-        return m
+        return seeded_model(r, d, grid, mask_params)
 
     t0 = time.perf_counter()
     model = model_on(dev)
     print(f"  model set-up (f64 tables, MOG compression): "
           f"{time.perf_counter() - t0:.2f} s; Ke = "
           f"{model._stacked_fz.thr.shape[-1]}")
-    center0 = np.array([100.0, -50.0, -700.0])
-    frame0 = paint_frame(rng, cams, bg, center0)
     frame0_d = torch.from_numpy(frame0).to(dev)
     btab = model._btab
     # L2 flush before each timed launch: READ a buffer larger than the 50 MB
@@ -643,16 +856,25 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     n_compute = int((act & ~ful).sum())
     n_full = int(ful.sum())
     n_occ = int(got[0].sum())
+    # masks: the bytes at the counted sub-blocks' pixels; colour frame:
+    # the pixels of the occupied voxels (the plain version's gather)
+    k1_mask_bytes = mask_bytes_read(torch, cb, btab.pk, act & ~ful, W)
+    row_c = btab.pk[..., btab.color_camera, :] >> 10
+    lit = (got[0] > 0) & (row_c != cb.INVALID_ROW) & (btab.lcc >= 0)
+    k1_colour_bytes = 3 * int(torch.unique((row_c * W + btab.lcc)[lit])
+                              .numel())
     k1_bytes = (8 * nblk  # active + full flags
                 + n_compute * C * cb.BV * 4  # pk of computed blocks
                 + n_full * cb.BV * 4  # colour-camera pk of full blocks
                 + n_occ * 4  # lcc of occupied voxels
-                + masks.numel() + H * W * 3  # masks, colour frame
+                + k1_mask_bytes + k1_colour_bytes  # masks, colour frame
                 + nblk * cb.BV * 4)  # occ + 3 colour bytes per voxel
     k1_ops = n_compute * cb.BV * C * 8  # decode, compare, add per view
     k1_bound, k1_bound_by = bound(k1_bytes, k1_ops)
     print(f"  active {float(act.float().mean()):.4f} of {nblk} sub-blocks, "
-          f"full {n_full}, occupied voxels {n_occ}")
+          f"full {n_full}, occupied voxels {n_occ}; mask bytes read "
+          f"{k1_mask_bytes} of {masks.numel()}, colour bytes "
+          f"{k1_colour_bytes} of {H * W * 3}")
     print(f"  K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
           f"{k1_bound:.5f} ms ({k1_bound_by}: {k1_bytes} B, {k1_ops} ops)")
     if dev.type == "cuda":
@@ -726,8 +948,6 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
 
     # -- [6] stream ------------------------------------------------------
     print(f"[6] stream over {STREAM_FRAMES} frames", flush=True)
-    seq = [paint_frame(rng, cams, bg, center0 + [12.0 * i, -6.0 * i, 0.0])
-           for i in range(STREAM_FRAMES)]
     list(model.stream(iter(seq[:2])))  # warm-up
     sync(torch, dev)
     for k in kernels:
@@ -894,11 +1114,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     # -- [11] K4 ---------------------------------------------------------
     print(f"[11] K4 multi-frame carve vs its plain version ({OFFLINE_NF} "
           "frames)", flush=True)
-    masks8 = torch.stack([model.masks(f) for f in seq[:OFFLINE_NF]])
-    active8, _ = cb.block_activity(masks8.amax(dim=0), vt, btab.allv,
-                                   btab.ry, btab.rx)
-    _, full8 = cb.block_activity(masks8.amin(dim=0), vt, btab.allv, btab.ry,
-                                 btab.rx)
+    masks8, active8, full8 = k4_chunk(torch, cb, model, seq)
     got4 = cb.carve_frames_kernel(btab.pk, active8, full8, masks8,
                                   views_threshold=vt)
     want4 = cb.carve_frames_plain(btab.pk, active8, full8, masks8,
@@ -918,14 +1134,24 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         reps=5, flush=flush)
     act8, ful8 = active8.bool(), full8.bool()
     n_compute8 = int((act8 & ~ful8).sum())
+    # masks: the bytes at the counted sub-blocks' pixels, in every frame
+    k4_mask_bytes = OFFLINE_NF * mask_bytes_read(torch, cb, btab.pk,
+                                                 act8 & ~ful8, W)
     k4_bytes = (8 * nblk + n_compute8 * C * cb.BV * 4  # flags, pk
-                + masks8.numel() + got4.numel())  # masks in, occupancy out
+                + k4_mask_bytes + got4.numel())  # masks in, occupancy out
     k4_ops = n_compute8 * cb.BV * C * (5 + 2 * OFFLINE_NF)
     k4_bound, k4_bound_by = bound(k4_bytes, k4_ops)
     print(f"  active on the union {float(act8.float().mean()):.4f} of "
-          f"{nblk} sub-blocks, full on the intersection {int(ful8.sum())}")
+          f"{nblk} sub-blocks, full on the intersection {int(ful8.sum())}, "
+          f"counted {n_compute8}; mask bytes they address {k4_mask_bytes} "
+          f"of {masks8.numel()}")
     print(f"  K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
           f"{k4_bound:.5f} ms ({k4_bound_by}: {k4_bytes} B, {k4_ops} ops)")
+    k4_plan = (cb.k4_launch_plan(nblk, C, OFFLINE_NF) if dev.type == "cuda"
+               else None)
+    print(f"  K4 launch: {k4_plan}")
+    k4_err = max(k4_err, hold_frames(torch, dev, cb, cams, image_hw, btab,
+                                     masks8, vt))
 
     # -- [12] offline path -----------------------------------------------
     print(f"[12] process_frames_offline over {STREAM_FRAMES} frames on the "
@@ -1008,29 +1234,40 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     if dev.type == "cuda":
         expect(k2_route["route"] == k5_route["route"] == "cluster",
                f"the production shape {(Hp, Wp)} takes the cluster route")
+        # last: it holds ~7 GB of the card while it runs
+        print("[11] K4 at its limits", flush=True)
+        k4_err = max(k4_err, hold_frames_limits(torch, dev, cb))
 
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
-            **more):
+            prof=None, prof_name="", **more):
+        """``profiler_ms``: the ms per launch that profile ``prof`` gives
+        the kernel whose name holds ``prof_name`` (None where none saw it)."""
+        own = (prof or {}).get("own_kernels_ms_per_launch", {})
         return {"name": name, "route": "cuda",
                 "source": f"vbr_tpu_torch/csrc/{k.source.name}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None, **more}
+                "bound_by": bound_by, "library_ms": None,
+                "profiler_ms": next((v for key, v in own.items()
+                                     if prof_name and prof_name in key), None),
+                **more}
 
     return {
         "kernels": [
             row(cb.K1, "K1 carve_blocked", "vbr_tpu/ops/carve_pallas.py:673",
                 k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by,
-                launches[0], launch=k1_plan),
+                launches[0], profile, "carve_blocked_kernel", launch=k1_plan),
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
-                k2_bound, k2_bound_by, launches[1], kernel_route=k2_route),
+                k2_bound, k2_bound_by, launches[1], profile, "CombinedRule",
+                kernel_route=k2_route),
             row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
                 k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches,
-                launch=k3_plan),
+                k3_profile, "mog_train_kernel", launch=k3_plan),
             row(cb.K4, "K4 carve_frames", "vbr_tpu/ops/carve_pallas.py:1212",
                 k4_err, k4_ms, k4_plain_ms, k4_bound, k4_bound_by,
-                k4_launches),
+                k4_launches, offline_profile, "carve_frames_kernel",
+                launch=k4_plan),
             row(ccl_label.K5, "K5 ccl_label", "vbr_tpu/ops/ccl_pallas.py:67",
                 k5_err, k5_ms, k5_plain_ms, k5_bound, k5_bound_by,
                 k5_launches, kernel_route=k5_route),

@@ -65,12 +65,13 @@ def test_phases_run_on_cpu_small_rig(capsys):
     for k in report["kernels"]:
         assert k["max_abs_err"] == 0 and k["bound_ms"] > 0
         # the labelling kernels also report the route their launcher took,
-        # the carve and the training kernel what they launch
+        # the carves and the training kernel what they launch
         more = ({"kernel_route"} if k["name"][:2] in ("K2", "K5")
-                else {"launch"} if k["name"][:2] in ("K1", "K3") else set())
+                else {"launch"})
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms"} | more
+                          "bound_by", "library_ms", "profiler_ms"} | more
+        assert k["profiler_ms"] is None  # no profile on the CPU
         assert os.path.exists(os.path.join(ROOT, k["source"]))
     out = capsys.readouterr().out
     assert "overflow bits set" in out and "FAILED" not in out
@@ -89,6 +90,13 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "random masks, threshold 2", "32^3 grid, colour camera 2",
                  "32^3 grid, 3 cameras"):
         assert f"ok: K1 {what}: occupancy and colours bit-equal" in out
+    for what in ("all masks empty", "all masks full",
+                 "random masks, threshold 2", "views_threshold 3 of 4",
+                 "full in one frame only", "NF = 1", "NF = 5", "NF = 9",
+                 "NF = 16", "32^3 grid", "32^3 grid, 3 cameras"):
+        assert f"ok: K4 {what}: occupancy bit-equal" in out
+    for n in (1, 5, 9, 16):
+        assert f"K4: a chunk of {n} frames sets the voxels of its" in out
     for what in ("random frames on the mid-training state", "K = 3, 37x53",
                  "K = 1, 37x53", "37x53, a single frame",
                  "37x53, chunk 2 of two in a row",

@@ -82,3 +82,13 @@ def test_labelling_kernels_list_their_shared_header():
         assert [d.name for d in k.deps] == ["ccl_common.cuh"]
         assert all(d.exists() for d in k.deps)
         assert f'#include "{k.deps[0].name}"' in k.source.read_text()
+
+
+def test_carve_kernels_list_their_shared_header():
+    from vbr_tpu_torch.ops import carve_blocked
+
+    for k in (carve_blocked.K1, carve_blocked.K4):
+        assert [d.name for d in k.deps] == ["carve_common.cuh"]
+        assert all(d.exists() for d in k.deps)
+        assert f'#include "{k.deps[0].name}"' in k.source.read_text()
+    assert carve_blocked.K1.lib_path != carve_blocked.K4.lib_path

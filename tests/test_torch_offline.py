@@ -4,11 +4,14 @@
 ``vbr_tpu``'s counts kernel runs in interpret mode; the port runs K4's
 plain version on the CPU.  Everything is integer, so occupancy, colour
 indices and colours are compared with zero tolerance: against ``vbr_tpu``,
-against the per-frame table carve, and for a frame that overflows the
-device component tables against the exact per-frame redo.
+against the per-frame table carve, against a numpy model of K4's packed
+counters and stores, and for a frame that overflows the device component
+tables against the exact per-frame redo.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -120,8 +123,7 @@ def test_carve_frames_batched_matches_per_frame(carve_rig):
 def test_k4_wrapper_uses_plain_on_cpu_only(carve_rig):
     _, tt, _, masks = carve_rig
     chunk = torch.from_numpy(masks[:2])
-    act, _ = tcb.block_activity(chunk.amax(dim=0), 4, tt.allv, tt.ry, tt.rx)
-    _, full = tcb.block_activity(chunk.amin(dim=0), 4, tt.allv, tt.ry, tt.rx)
+    act, full = tcb.chunk_activity(chunk, tt, 4)
     before = tcb.K4.launches
     got = tcb.carve_frames_kernel(tt.pk, act, full, chunk, views_threshold=4)
     want = tcb.carve_frames_plain(tt.pk, act, full, chunk, views_threshold=4)
@@ -131,6 +133,227 @@ def test_k4_wrapper_uses_plain_on_cpu_only(carve_rig):
         tcb.carve_frames_kernel(tt.pk.to("meta"), act.to("meta"),
                                 full.to("meta"), chunk.to("meta"),
                                 views_threshold=4)
+
+
+# -- K4's design, as far as the CPU can hold it ----------------------------
+
+ONES = np.uint32(0x01010101)
+
+
+def _frames(masks, nf):
+    """A chunk of ``nf`` frames of the rig: frame i is ``masks[i % F]``."""
+    return np.ascontiguousarray(masks[np.arange(nf) % len(masks)])
+
+
+def _vcmpgeu4(a, b):
+    """``__vcmpgeu4``: 0xff in each byte where a's byte >= b's, else 0."""
+    out = np.zeros_like(a)
+    for k in range(4):
+        ge = (a >> np.uint32(8 * k) & np.uint32(0xFF)) >= (
+            b >> np.uint32(8 * k) & np.uint32(0xFF))
+        out |= np.where(ge, np.uint32(0xFF) << np.uint32(8 * k),
+                        np.uint32(0))
+    return out
+
+
+K4_GROUP = 8  # frames whose counters a thread keeps in registers
+
+
+def _k4_model(pk, active, full, masks, thr):
+    """K4's arithmetic in numpy: for each counted sub-block and thread, one
+    32-bit counter word per frame (byte e = the count of voxel 4·tid + e),
+    the threshold as the launcher clamps it, tested per byte, and the
+    frame's word stored at word (f·nblk + b)·128 + tid; inactive and full
+    sub-blocks are filled with 0 or 0x01 bytes.  A mask byte is read as the
+    kernel addresses it: the group's first frame as a 64-bit base, then an
+    int offset of at most kGroup frames, a group past the chunk's end
+    reading its last frame again."""
+    nsuper, nsub, C, BV = pk.shape
+    NF, _, H, W = masks.shape
+    nblk = nsuper * nsub
+    p = pk.reshape(nblk, C, BV // 4, 4).astype(np.int64)
+    kind = np.where(active > 0, np.where(full > 0, 2, 1), 0)
+    t = min(max(thr, 0), C + 1)
+    thr4 = np.uint32(t) * ONES
+    full4 = ONES if C >= thr else np.uint32(0)
+    flat = masks.reshape(-1)
+    cam, frame = H * W, C * H * W
+    words = np.zeros((NF, nblk, BV // 4), np.uint32)
+    for f0 in range(0, NF, K4_GROUP):
+        group = f0 * frame  # the 64-bit base
+        for i in range(K4_GROUP):
+            fo = (min(f0 + i, NF - 1) - f0) * frame
+            w = np.zeros((nblk, BV // 4), np.uint32)
+            for c in range(C):
+                for e in range(4):
+                    row = p[:, c, :, e] >> 10
+                    valid = row != tcb.INVALID_ROW
+                    x = (((p[:, c, :, e] >> 3) & 127) * 8
+                         + (p[:, c, :, e] & 7))
+                    off = c * cam + np.where(valid, row * W + x, 0) + fo
+                    assert off.max() < K4_GROUP * frame <= 2**31 - 1
+                    hit = valid & (flat[group + off] != 0)
+                    w += hit.astype(np.uint32) << np.uint32(8 * e)
+            if f0 + i >= NF:
+                continue  # counted, not stored
+            occ_w = _vcmpgeu4(w, thr4) & ONES
+            words[f0 + i] = np.where(
+                (kind == 1)[:, None], occ_w,
+                np.where((kind == 2)[:, None], full4, np.uint32(0)))
+    assert (words >> np.uint32(8 * np.arange(4)[:, None, None, None])
+            & np.uint32(0xFF)).max() <= 1
+    return words.view(np.uint8).reshape(NF, nsuper, nsub, BV)
+
+
+@pytest.fixture(scope="module")
+def three_camera_tables():
+    cams_j = jsyn.synthetic_cameras(C, image_hw=(H, W), f=80.0)[:3]
+    cams_t = tsyn.synthetic_cameras(C, image_hw=(H, W), f=80.0)[:3]
+    return (jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
+                                   accelerate=False, color_camera=0),
+            tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
+                                   color_camera=0))
+
+
+@pytest.mark.parametrize("nf", [1, 5, 9])
+@pytest.mark.parametrize("thr", [3, 4])
+@pytest.mark.parametrize("cams", [3, 4])
+def test_packed_counter_model_matches_plain(carve_rig, three_camera_tables,
+                                            cams, thr, nf):
+    """(exact) K4's packed per-frame counter word and per-byte threshold
+    test, modelled in numpy, equal the plain version."""
+    _, tt, _, masks = carve_rig
+    if cams == 3:
+        tt = three_camera_tables[1]
+    chunk = _frames(masks[:, :cams], nf)
+    active, full = tcb.chunk_activity(torch.from_numpy(chunk), tt, thr)
+    want = tcb.carve_frames_plain(tt.pk, active, full,
+                                  torch.from_numpy(chunk),
+                                  views_threshold=thr).numpy()
+    got = _k4_model(tt.pk.numpy(), active.numpy(), full.numpy(), chunk, thr)
+    np.testing.assert_array_equal(got, want)
+    # a threshold above the camera count leaves every voxel empty
+    assert want.any() == (thr <= cams)
+
+
+@pytest.mark.parametrize("thr", [-1, 0, 5, 300])
+def test_threshold_clamp_matches_plain(carve_rig, thr):
+    """(exact) A threshold past C + 1 or below 0, clamped by the launcher
+    into a byte, keeps the plain version's result."""
+    _, tt, _, masks = carve_rig
+    chunk = torch.from_numpy(masks)
+    active, full = tcb.chunk_activity(chunk, tt, 4)
+    want = tcb.carve_frames_plain(tt.pk, active, full, chunk,
+                                  views_threshold=thr).numpy()
+    got = _k4_model(tt.pk.numpy(), active.numpy(), full.numpy(), masks, thr)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() == (thr <= 4)
+
+
+@pytest.mark.parametrize("nf", [1, 5, 8, 9])
+def test_frame_major_stores_cover_each_byte_once(nf):
+    """Thread tid's 32-bit word of frame f and sub-block b sits at word
+    (f·nblk + b)·128 + tid, byte e = voxel 4·tid + e; the 16-byte fill of a
+    sub-block is NF·32 stores, store i at plane i // 32, quad i % 32 of the
+    sub-block, spread over the 128 threads (store i from thread i % 128).
+    Together they write every output byte exactly once."""
+    nblk, BV = 6, tcb.BV
+    rng = np.random.default_rng(nf)
+    vox = rng.integers(0, 2, (nf, nblk, BV), dtype=np.uint8)
+    words = np.zeros(nf * nblk * BV // 4, np.uint32)
+    for f in range(nf):
+        for b in range(nblk):
+            for tid in range(128):
+                q = vox[f, b, 4 * tid:4 * tid + 4].astype(np.uint32)
+                words[(f * nblk + b) * 128 + tid] = (
+                    q[0] | q[1] << 8 | q[2] << 16 | q[3] << 24)
+    np.testing.assert_array_equal(words.view(np.uint8).reshape(vox.shape),
+                                  vox)
+    counted = {1, 4}  # the other sub-blocks are filled
+    hits = np.zeros(nf * nblk * BV, np.int64)
+    for b in range(nblk):
+        if b in counted:
+            for f in range(nf):
+                for tid in range(128):
+                    start = ((f * nblk + b) * 128 + tid) * 4
+                    hits[start:start + 4] += 1
+            continue
+        per_thread = np.zeros(128, np.int64)
+        for i in range(nf * 32):
+            per_thread[i % 128] += 1
+            start = (i // 32 * nblk + b) * BV + (i % 32) * 16
+            assert start % 16 == 0
+            hits[start:start + 16] += 1
+        assert per_thread.max() - per_thread.min() <= 1
+    assert (hits == 1).all()
+
+
+def _k4_variants():
+    spec = importlib.util.spec_from_file_location(
+        "bench_k4_variants",
+        Path(__file__).resolve().parents[1] / "scripts" / "bench_k4_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_k4_variants().VARIANTS))
+def test_k4_departures_edit_the_source_once(name):
+    """Every departure that the timing script builds is text edits that each
+    match K4's shipped source exactly once; the design is the source."""
+    edits = _k4_variants().VARIANTS[name]
+    src = tcb.K4.source.read_text()
+    edits = edits(src) if callable(edits) else edits
+    assert bool(edits) == (not name.startswith("design"))
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new
+        src = src.replace(old, new)
+    assert src != tcb.K4.source.read_text() or not edits
+
+
+def _card_check_case(case, carve_rig, three_camera_tables):
+    jt, tt, _, masks = carve_rig
+    thr, nf = 4, len(masks)
+    if case == "empty":
+        masks = np.zeros_like(masks)
+    elif case == "full":
+        masks = np.full_like(masks, 255)
+    elif case == "threshold_3":
+        thr = 3
+    elif case == "full_in_one_frame":
+        masks, nf = masks[3:5], 2  # frame 4 is all foreground
+    elif case == "nf_9":
+        masks, nf = _frames(masks, 9), 9
+    elif case == "three_cameras":
+        (jt, tt), masks, thr = three_camera_tables, masks[:, :3], 3
+    return jt, tt, np.ascontiguousarray(masks), thr, nf
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "threshold_3",
+                                  "full_in_one_frame", "nf_9",
+                                  "three_cameras"])
+def test_plain_matches_pallas_on_the_card_check_inputs(
+        carve_rig, three_camera_tables, case):
+    """(exact) The inputs that hold K4 on the card beyond the production
+    chunk: the plain version equals the Pallas kernel in interpret mode."""
+    jt, tt, masks, thr, nf = _card_check_case(case, carve_rig,
+                                              three_camera_tables)
+    got = tcb.carve_frames_blocked(torch.from_numpy(masks), tt,
+                                   views_threshold=thr,
+                                   frames_per_launch=nf).numpy()
+    ref = np.asarray(jcp.carve_frames_blocked(
+        jnp.asarray(masks), jt, views_threshold=thr, frames_per_launch=nf,
+        interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    per_frame = got.sum(axis=1)
+    if case == "empty":
+        assert not per_frame.any()
+    else:
+        assert per_frame.min() > 0
+    if case == "full_in_one_frame":
+        assert per_frame[1] > per_frame[0]
+    if case == "nf_9":
+        np.testing.assert_array_equal(got[5:], got[:4])
 
 
 # -- the whole offline path, on the rig of tests/test_offline_frames.py ----

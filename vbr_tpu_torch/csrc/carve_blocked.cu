@@ -49,38 +49,18 @@
 //  * Colours are gathered only for occupied voxels, which yields the same
 //    bytes as the TPU kernel's "gather when the block max reaches the
 //    threshold, mask by occupancy afterwards".
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The copy helpers, the mask gather, the persistent walk and its launch
+// plan are shared with K4 (carve_common.cuh).
+#include "carve_common.cuh"
 
 namespace {
 
-constexpr int kBV = 512;
+using namespace carve;
+
 constexpr int kThreads = kBV / 4;  // four voxels per thread
 constexpr int kStages = 2;         // table copies in flight per CTA
 constexpr int kStaticC = 4;        // the rig's camera count
-constexpr int kInvalidRow = 1023;
-
-__device__ __forceinline__ void cp_async16(int4* smem, const int4* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-
-// 1 when the packed word's projection is valid and its mask byte is set
-__device__ __forceinline__ int mask_hit(const uint8_t* __restrict__ masks_c,
-                                        int p, int W) {
-  const int row = p >> 10;
-  const bool valid = row != kInvalidRow;
-  const int x = ((p >> 3) & 127) * 8 + (p & 7);
-  const uint8_t m = masks_c[valid ? row * W + x : 0];
-  return (valid && m != 0) ? 1 : 0;
-}
 
 // CS > 0: the number of cameras, fixed at compile time; 0: C at run time.
 template <int CS>
@@ -95,27 +75,14 @@ __global__ void __launch_bounds__(kThreads) carve_blocked_kernel(
     uint8_t* __restrict__ col,           // (nblk, 3, BV)
     int nblk, int C_rt, int H, int W, int color_camera, int views_threshold) {
   extern __shared__ int4 ring[];          // [kStages][C + 1][kThreads]
-  __shared__ uint8_t s_kind[kThreads];    // 0 inactive, 1 count, 2 full
+  __shared__ uint8_t s_kind[kRound];      // 0 inactive, 1 count, 2 full
   const int C = CS > 0 ? CS : C_rt;
   const int tid = threadIdx.x;
-  const int G = gridDim.x;
   const int stage_stride = (C + 1) * kThreads;
   int4* const mine = ring + tid;
   const size_t plane = (size_t)H * W;
-  // this CTA's sub-blocks are blockIdx.x + j * G, j < n_own
-  const int n_own = (nblk - (int)blockIdx.x + G - 1) / G;
 
-  for (int base = 0; base < n_own; base += kThreads) {
-    const int n = min(kThreads, n_own - base);
-    auto block_of = [&](int j) {
-      return (size_t)blockIdx.x + (size_t)(base + j) * G;
-    };
-    if (tid < n) {
-      const size_t b = block_of(tid);
-      s_kind[tid] = active[b] > 0 ? (full[b] > 0 ? 2 : 1) : 0;
-    }
-    __syncthreads();
-
+  walk_rounds(nblk, active, full, s_kind, [&](int n, auto block_of) {
     // the next active sub-block of this round, or -1
     int next = 0;
     auto next_active = [&]() {
@@ -169,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) carve_blocked_kernel(
     for (int j = 0; j < n; ++j) {
       const int kind = s_kind[j];
       if (kind == 0) continue;
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+      cp_async_wait<kStages - 1>();
       const int4* src = mine + stage * stage_stride;
       int cnt[4] = {C, C, C, C};
       if (kind == 1) {
@@ -224,55 +191,23 @@ __global__ void __launch_bounds__(kThreads) carve_blocked_kernel(
       start_copy(next_active(), stage);
       stage = stage + 1 == kStages ? 0 : stage + 1;
     }
-    __syncthreads();  // s_kind is rewritten in the next round
-  }
+  });
 }
 
 // Returns at once: its time between two events is what any launch costs.
 __global__ void empty_kernel() {}
 
-struct Plan {
-  int status;    // a cudaError_t
-  int c_static;  // 1: the kernel instantiated for C cameras; 0: run-time C
-  int smem;      // dynamic shared memory per CTA, bytes
-  int per_sm;    // CTAs an SM holds
-  int blocks;    // CTAs launched
-};
-
 template <int CS>
 Plan plan_for(int nblk, int C) {
-  Plan p = {};
-  p.c_static = CS > 0;
-  p.smem = kStages * (C + 1) * kThreads * (int)sizeof(int4);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(carve_blocked_kernel<CS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               p.smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &p.per_sm, carve_blocked_kernel<CS>, kThreads, p.smem);
-  }
-  if (err == cudaSuccess && p.per_sm < 1) err = cudaErrorInvalidValue;
-  p.status = static_cast<int>(err);
-  if (err == cudaSuccess) {
-    const long long resident = (long long)sms * p.per_sm;
-    p.blocks = (int)(nblk < resident ? nblk : resident);
-  }
-  return p;
+  return persistent_plan(carve_blocked_kernel<CS>, CS > 0, kThreads,
+                         kStages * (C + 1) * kThreads * (int)sizeof(int4),
+                         nblk);
 }
 
 Plan plan_launch(int nblk, int C, int H, int W, int color_camera) {
   if (nblk < 0 || C < 1 || H < 1 || W < 1 || color_camera < 0 ||
       color_camera >= C) {
-    Plan p = {};
-    p.status = static_cast<int>(cudaErrorInvalidValue);
-    return p;
+    return invalid_plan();
   }
   return C == kStaticC ? plan_for<kStaticC>(nblk, C) : plan_for<0>(nblk, C);
 }

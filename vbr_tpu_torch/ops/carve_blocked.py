@@ -43,13 +43,17 @@ LANE = 128  # fine-cell span padding (kept from the JAX tables)
 FCELL = 8  # activity/full-test fine-cell size in pixels
 INVALID_ROW = 1023  # ``pk`` row of a projection outside the image
 
+# both include csrc/carve_common.cuh (copy helpers, mask gather, the
+# persistent walk and its launch plan)
 K1 = CudaKernel(
     "carve_blocked.cu", "vbr_carve_blocked",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    deps=["carve_common.cuh"],
 )
 K4 = CudaKernel(
     "carve_frames.cu", "vbr_carve_frames",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    deps=["carve_common.cuh"],
 )
 
 
@@ -281,18 +285,25 @@ def carve_blocked_kernel(pk, lcc, active, full, masks, image, *,
     return occ, col
 
 
+_PLAN_KEYS = ("c_static", "shared_bytes_per_cta", "ctas_per_sm", "ctas")
+
+
+def _launch_plan(kernel: CudaKernel, symbol: str, keys, *args: int) -> dict:
+    """What a carve's ``*_plan`` entry point reports, by ``keys``; the
+    ``*_static`` ones (C, or NF, fixed at compile time) are booleans."""
+    fn = kernel.function(symbol, [ctypes.c_int] * len(args)
+                         + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(keys))()
+    kernel.status_ok(fn(*args, out), symbol)
+    return {k: bool(v) if k.endswith("_static") else v
+            for k, v in zip(keys, out)}
+
+
 def k1_launch_plan(nblk: int, C: int) -> dict:
     """What K1 launches for ``nblk`` sub-blocks and ``C`` cameras on the
     current CUDA device: whether C is fixed at compile time, shared bytes
     per CTA, CTAs per SM and CTAs (a grid that does not grow with nblk)."""
-    fn = K1.function("vbr_carve_blocked_plan",
-                     [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
-    out = (ctypes.c_int * 4)()
-    K1.status_ok(fn(nblk, C, out), "vbr_carve_blocked_plan")
-    plan = dict(zip(("c_static", "shared_bytes_per_cta", "ctas_per_sm",
-                     "ctas"), out))
-    plan["c_static"] = bool(plan["c_static"])
-    return plan
+    return _launch_plan(K1, "vbr_carve_blocked_plan", _PLAN_KEYS, nblk, C)
 
 
 def carve_blocked_plain(pk, lcc, active, full, masks, image, *,
@@ -376,8 +387,11 @@ def carve_frames_kernel(pk, active, full, masks, *, views_threshold: int):
     """Kernel K4: blocked tables + chunk-wide flags + (NF, C, H, W) u8 masks
     → occupancy (NF, nsuper, nsub, BV) u8 0/1, frame-major.
 
-    CUDA tensors launch ``csrc/carve_frames.cu``; CPU tensors run
-    :func:`carve_frames_plain`."""
+    CUDA tensors launch ``csrc/carve_frames.cu`` (persistent CTAs, four
+    voxels per thread: byte e of a frame's output word is voxel 4v + e);
+    CPU tensors run :func:`carve_frames_plain`.  The kernel takes at most
+    56 cameras (its table ring in shared memory) and raises
+    ``RuntimeError`` beyond; the chunk's frames are not limited."""
     if pk.device.type == "cpu":
         return carve_frames_plain(pk, active, full, masks,
                                   views_threshold=views_threshold)
@@ -392,9 +406,20 @@ def carve_frames_kernel(pk, active, full, masks, *, views_threshold: int):
     check(full, "full", torch.int32, (nblk,), dev)
     check(masks, "masks", torch.uint8, (NF, C, H, W), dev)
     occ = torch.empty((NF, nsuper, nsub, BV), dtype=torch.uint8, device=dev)
+    for name, t in (("pk", pk), ("occ", occ)):
+        if t.data_ptr() % 16:  # 16-byte copies and stores
+            raise ValueError(f"{name} must be 16-byte aligned")
     K4.launch(ptr(pk), ptr(active), ptr(full), ptr(masks), ptr(occ), nblk,
               NF, C, H, W, int(views_threshold))
     return occ
+
+
+def k4_launch_plan(nblk: int, C: int, NF: int) -> dict:
+    """What K4 launches for ``nblk`` sub-blocks, ``C`` cameras and ``NF``
+    frames on the current CUDA device, as :func:`k1_launch_plan` reports
+    it for K1, and whether NF is fixed at compile time."""
+    return _launch_plan(K4, "vbr_carve_frames_plan",
+                        _PLAN_KEYS + ("nf_static",), nblk, C, NF)
 
 
 def carve_frames_plain(pk, active, full, masks, *, views_threshold: int):
@@ -417,18 +442,25 @@ def carve_frames_plain(pk, active, full, masks, *, views_threshold: int):
     return (act & (count >= views_threshold)).to(torch.uint8)
 
 
-def _carve_frames_device(masks: torch.Tensor, tables: BlockTables, *,
-                         views_threshold: int) -> torch.Tensor:
-    """One launch over a chunk: (NF, C, H, W) u8 masks → (NF, N) bool
-    canonical occupancy.  A block is active when the UNION of the frames'
-    foreground could reach the view threshold in its footprint, and full
-    only when their INTERSECTION is entirely foreground (then every
-    frame's count is C for every voxel)."""
-    NF = masks.shape[0]
+def chunk_activity(masks: torch.Tensor, tables: BlockTables,
+                   views_threshold: int):
+    """K4's flags for a chunk of (NF, C, H, W) u8 masks: a block is active
+    when the UNION of the frames' foreground could reach the view threshold
+    in its footprint, and full only when their INTERSECTION is entirely
+    foreground (then every frame's count is C for every voxel)."""
     active, _ = block_activity(masks.amax(dim=0), views_threshold,
                                tables.allv, tables.ry, tables.rx)
     _, full = block_activity(masks.amin(dim=0), views_threshold,
                              tables.allv, tables.ry, tables.rx)
+    return active, full
+
+
+def _carve_frames_device(masks: torch.Tensor, tables: BlockTables, *,
+                         views_threshold: int) -> torch.Tensor:
+    """One launch over a chunk: (NF, C, H, W) u8 masks → (NF, N) bool
+    canonical occupancy, with the flags of :func:`chunk_activity`."""
+    NF = masks.shape[0]
+    active, full = chunk_activity(masks, tables, views_threshold)
     occ_b = carve_frames_kernel(tables.pk, active, full, masks.contiguous(),
                                 views_threshold=views_threshold)
     nsuper, nsub = tables.nsuper, tables.nsub
