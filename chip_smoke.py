@@ -54,16 +54,32 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      masks, a view threshold of 3, a chunk full in one frame only, chunks
      of 1, 5, 9 and 16 frames, and on a 32^3 grid the rig and a rig of 3
      cameras; the kernel is run several times on each; and after phase 13
-     (it holds ~7 GB of the card) K4 at its limits: a chunk of more than
-     2^31 mask bytes bit-equal, 56 cameras taken and 57 refused.  Bounds
-     count the mask bytes at the counted sub-blocks' pixels (K1 and K4),
-     and K1's colour bytes at occupied voxels;
+     (it holds ~7 GB of the card) a chunk of more than 2^31 mask bytes
+     bit-equal.  Bounds count the mask bytes at the counted sub-blocks'
+     pixels (K1 and K4), and K1's colour bytes at occupied voxels;
  12. the offline path, ``VisualHull.process_frames_offline`` over the 16
      frames on the trained model: per-frame occupancy and colours equal to
      ``process_frame_fast``; K4 launches counted, ms/frame;
  13. K5 (single-phase labelling) on the foreground of the main-path
      frame, against its plain version: labels and iterations equal, times;
-     then the inputs of phase 4 again.
+     then the inputs of phase 4 again;
+ 14. the reference's viewer seam, ``apps/assignment_api``, on the real
+     rig: a data directory written with the port's own writers under
+     ``build/`` (the cameras of ``artifacts/auto_extrinsics``, the board,
+     the seeded background models as npz), frames painted from the rig's
+     silhouettes ``artifacts/final/mask_cam*.png`` (read with ``zlib``)
+     moving a few pixels; ``set_voxel_positions(128, 64, 128)`` over 8
+     frames and the end of the stream, lists equal on the card and on the
+     CPU, K1 and K2 launches counted, ms per call split into the step, the
+     compaction and ``.tolist()``; the cameras equal to the host f64
+     values; ``set_voxel_positions(100, 50, 100)`` (not divisible by
+     8·sup) through the table step, card equal to CPU; the three
+     ``masks`` cleanup routes equal; the projection-table cache built,
+     then loaded;
+ 15. K1 and K4 at camera counts other than the rig's four (K1 55, 56,
+     64, 300; K4 55, 56, 57, 64, 255, 300), which take the direct kernel,
+     on random tables, bit-equal to their plain versions, with each launch
+     plan (``scripts/bench_camera_counts.py`` times them at full size).
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -79,11 +95,16 @@ nothing of JAX or of the ``vbr_tpu`` package.
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 import json
+import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -147,11 +168,18 @@ def paint_frame(rng, cams, bg, center, speckle=200, holes=4):
     from vbr_tpu_torch.utils.synthetic import sphere_silhouette_mask
 
     H, W = bg.shape[1:3]
+    sils = [sphere_silhouette_mask(cp, np.asarray(center), 500.0, (H, W)) > 0
+            for cp in cams]
+    return paint_silhouettes(rng, bg, sils, speckle, holes)
+
+
+def paint_silhouettes(rng, bg, sils, speckle=200, holes=4):
+    """Background + each camera's (H, W) bool silhouette in the subject
+    texture, plus seeded speckle and holes."""
+    H, W = bg.shape[1:3]
     tex = subject_texture(H, W)
     fr = bg.copy()
-    for c, cp in enumerate(cams):
-        sil = sphere_silhouette_mask(cp, np.asarray(center), 500.0,
-                                     (H, W)) > 0
+    for c, sil in enumerate(sils):
         fr[c][sil] = tex[sil]
         ys = rng.integers(0, H, speckle)
         xs = rng.integers(0, W, speckle)
@@ -388,8 +416,8 @@ def hold_carve(torch, dev, cb, cams, image_hw, btab, masks, frame_d, vt):
     on inputs the production frame does not reach: every sub-block
     inactive, every sub-block with valid projections full, a lower view
     threshold, random masks, and on a 32^3 grid (fewer sub-blocks than the
-    card holds CTAs) another colour camera and a 3-camera rig (the kernel
-    with a run-time camera count).  The kernel is run several times on
+    card holds CTAs) another colour camera and a 3-camera rig (the direct
+    kernel).  The kernel is run several times on
     each; returns the largest difference seen and what each case held."""
     from vbr_tpu_torch.utils.config import GridConfig
 
@@ -450,8 +478,8 @@ def hold_carve(torch, dev, cb, cams, image_hw, btab, masks, frame_d, vt):
         expect(big["c_static"] and not few["plan"]["c_static"]
                and few["plan"]["ctas"] == few["nblk"]
                and big["ctas"] < nblk and nblk % big["ctas"] != 0,
-               f"K1: the rig's camera count is compiled in, 3 cameras run "
-               f"the run-time loop; {few['nblk']} sub-blocks take as many "
+               f"K1: the rig's camera count is compiled in, 3 cameras take "
+               f"the direct kernel; {few['nblk']} sub-blocks take as many "
                f"CTAs, {nblk} take {big['ctas']} (not a divisor)")
     return worst
 
@@ -463,7 +491,7 @@ def hold_frames(torch, dev, cb, cams, image_hw, btab, masks8, vt):
     threshold, a chunk that is full in one frame only, chunks of 1, 5, 9
     and 16 frames (the frame group's tail, more frames than one group), and
     on a 32^3 grid (fewer sub-blocks than the card holds CTAs) the rig and a
-    3-camera rig (the kernel with a run-time camera count).  The kernel is
+    3-camera rig (the direct kernel).  The kernel is
     run several times on each; returns the largest difference seen."""
     from vbr_tpu_torch.utils.config import GridConfig
 
@@ -547,26 +575,20 @@ def hold_frames(torch, dev, cb, cams, image_hw, btab, masks8, vt):
                and few["plan"]["ctas"] == few["nblk"]
                and big["ctas"] < nblk,
                f"K4: the rig's camera count and the chunk of {NF} frames are "
-               f"compiled in, 9 frames and 3 cameras run the run-time loops; "
+               f"compiled in, 9 frames run the run-time loop and 3 cameras "
+               f"the direct kernel; "
                f"{few['nblk']} sub-blocks take as many CTAs, {nblk} take "
                f"{big['ctas']}")
     return worst
 
 
 def hold_frames_limits(torch, dev, cb):
-    """K4 at its limits, on the card: a chunk of more than 2^31 mask bytes
-    (514 frames of 4 x 1022 x 1023, random tables of 16 sub-blocks) held
-    bit-equal against the plain version, and the most cameras whose table
-    ring fits in shared memory (56) taken while 57 are refused, by the plan
-    and by the wrapper.  Returns the largest difference seen."""
+    """K4 on a chunk of more than 2^31 mask bytes (514 frames of 4 x 1022 x
+    1023, random tables of 16 sub-blocks), on the card, held bit-equal
+    against the plain version.  Returns the largest difference seen."""
     NF, C, H, W, nblk = 514, 4, 1022, 1023, 16
     g = torch.Generator(device=dev).manual_seed(SEED + 19)
-    row = torch.randint(0, H, (1, nblk, C, cb.BV), generator=g, device=dev,
-                        dtype=torch.int32)
-    x = torch.randint(0, W, (1, nblk, C, cb.BV), generator=g, device=dev,
-                      dtype=torch.int32)
-    row[..., ::7] = cb.INVALID_ROW
-    pk = (row << 10) | ((x // cb.WORD_BITS) << 3) | (x % cb.WORD_BITS)
+    pk = random_tables(torch, dev, cb, g, nblk, C, H, W)
     masks = torch.randint(0, 2, (NF, C, H, W), generator=g, device=dev,
                           dtype=torch.uint8) * 255
     active = torch.ones(nblk, dtype=torch.int32, device=dev)
@@ -588,23 +610,92 @@ def hold_frames_limits(torch, dev, cb):
            f"occupied voxels in the last frame {int(occupied[-1])}")
     del masks, want, got
     torch.cuda.empty_cache()
-    plan = cb.k4_launch_plan(1, 56, OFFLINE_NF)
-    refused = []
-    for what, call in (
-            ("the plan", lambda: cb.k4_launch_plan(1, 57, OFFLINE_NF)),
-            ("the wrapper", lambda: cb.carve_frames_kernel(
-                torch.zeros((1, 1, 57, cb.BV), dtype=torch.int32, device=dev),
-                torch.ones(1, dtype=torch.int32, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev),
-                torch.zeros((1, 57, 8, 8), dtype=torch.uint8, device=dev),
-                views_threshold=2))):
-        try:
-            call()
-        except RuntimeError:
-            refused.append(what)
-    expect(plan["ctas"] == 1 and refused == ["the plan", "the wrapper"],
-           f"K4 takes 56 cameras ({plan['shared_bytes_per_cta']} B of "
-           f"shared memory per CTA) and {' and '.join(refused)} refuse 57")
+    return worst
+
+
+def random_tables(torch, dev, cb, g, nblk, C, H, W):
+    """Random packed geometry words (1, nblk, C, BV) for (H, W) masks, one
+    projection in seven outside the image."""
+    shape = (1, nblk, C, cb.BV)
+    row = torch.randint(0, H, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    x = torch.randint(0, W, shape, generator=g, device=dev, dtype=torch.int32)
+    row[..., ::7] = cb.INVALID_ROW
+    return (row << 10) | ((x // cb.WORD_BITS) << 3) | (x % cb.WORD_BITS)
+
+
+K1_CAMERA_COUNTS = (55, 56, 64, 300)
+K4_CAMERA_COUNTS = (55, 56, 57, 64, 255, 300)
+
+
+def hold_camera_counts(torch, dev, cb, H=24, W=40, nblk=40, NF=OFFLINE_NF):
+    """K1 and K4 at camera counts other than the rig's four, which take the
+    direct kernel (tables read from device memory, K4 with 32-bit counters,
+    so past 254 cameras too): random tables of ``nblk`` sub-blocks
+    (some inactive, some full), random (H, W) masks at half foreground and a
+    view threshold of 3/7 of the cameras, so that occupancy is mixed; each
+    kernel bit-equal to its plain version, several runs each, its launch
+    plan printed.  Returns the largest difference seen by kernel."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    reruns = KERNEL_RERUNS if dev.type == "cuda" else 1
+    worst, routes = {"K1": 0.0, "K4": 0.0}, {}
+
+    def flags():
+        active = (torch.rand(nblk, generator=g, device=dev) < 0.8).int()
+        full = (torch.rand(nblk, generator=g, device=dev) < 0.2).int()
+        return active, full
+
+    for C in sorted(set(K1_CAMERA_COUNTS + K4_CAMERA_COUNTS)):
+        pk = random_tables(torch, dev, cb, g, nblk, C, H, W)
+        thr = 3 * C // 7
+        if C in K1_CAMERA_COUNTS:
+            lcc = torch.randint(-1, W, (1, nblk, cb.BV), generator=g,
+                                device=dev, dtype=torch.int32)
+            masks = torch.randint(0, 2, (C, H, W), generator=g, device=dev,
+                                  dtype=torch.uint8) * 255
+            image = torch.randint(0, 256, (H, W, 3), generator=g, device=dev,
+                                  dtype=torch.uint8)
+            args = (pk, lcc, *flags(), masks, image)
+            kw = dict(color_camera=C // 3, views_threshold=thr)
+            want = cb.carve_blocked_plain(*args, **kw)
+            for _ in range(reruns):
+                got = cb.carve_blocked_kernel(*args, **kw)
+                sync(torch, dev)
+                worst["K1"] = max(worst["K1"], max_abs_err(zip(got, want)))
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise Failed(f"K1 with {C} cameras differs from the plain "
+                                 "version")
+            plan = cb.k1_launch_plan(nblk, C) if dev.type == "cuda" else None
+            routes[("K1", C)] = plan and plan["route"]
+            n = int(got[0].sum())
+            expect(0 < n < nblk * cb.BV,
+                   f"K1 with {C} cameras: occupancy and colours bit-equal; "
+                   f"{n} voxels set; launch {plan}")
+        if C in K4_CAMERA_COUNTS:
+            masks = torch.randint(0, 2, (NF, C, H, W), generator=g,
+                                  device=dev, dtype=torch.uint8) * 255
+            active, full = flags()
+            want = cb.carve_frames_plain(pk, active, full, masks,
+                                         views_threshold=thr)
+            for _ in range(reruns):
+                got = cb.carve_frames_kernel(pk, active, full, masks,
+                                             views_threshold=thr)
+                sync(torch, dev)
+                worst["K4"] = max(worst["K4"], max_abs_err([(got, want)]))
+                if not torch.equal(got, want):
+                    raise Failed(f"K4 with {C} cameras differs from the plain "
+                                 "version")
+            plan = (cb.k4_launch_plan(nblk, C, NF) if dev.type == "cuda"
+                    else None)
+            routes[("K4", C)] = plan and plan["route"]
+            n = got.flatten(1).sum(dim=1).tolist()
+            expect(0 < min(n) and max(n) < nblk * cb.BV,
+                   f"K4 with {C} cameras, {NF} frames: occupancy bit-equal; "
+                   f"voxels set per frame {n}; launch {plan}")
+    if dev.type == "cuda":
+        expect(set(routes.values()) == {"direct"},
+               f"every camera count but the rig's takes the direct kernel: "
+               f"{routes}")
     return worst
 
 
@@ -753,15 +844,289 @@ def mask_bytes_read(torch, cb, pk, blocks, W):
                for c in range(p.shape[1]))
 
 
+def read_png_gray(path):
+    """An 8-bit grayscale, non-interlaced PNG as an (H, W) u8 array, with
+    the standard library's zlib (no image library on the card's host):
+    the five row filters of the PNG standard, one byte per pixel."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    W, H, depth, colour, _, _, interlace = head
+    if (depth, colour, interlace) != (8, 0, 0):
+        raise ValueError(f"{path}: not 8-bit grayscale without interlace")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(H, W + 1)
+    out = np.zeros((H, W), np.uint8)
+    up = np.zeros(W, np.int64)
+    for y in range(H):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int64)
+        if kind == 0:  # None
+            cur = line
+        elif kind == 1:  # Sub: x = r + left, a running sum mod 256
+            cur = np.cumsum(line) % 256
+        elif kind == 2:  # Up
+            cur = (line + up) % 256
+        elif kind in (3, 4):  # Average, Paeth: each byte needs its left
+            cur = np.zeros(W, np.int64)
+            left = up_left = 0
+            for x in range(W):
+                above = int(up[x])
+                if kind == 3:
+                    pred = (left + above) // 2
+                else:
+                    p = left + above - up_left
+                    pa, pb, pc = abs(p - left), abs(p - above), abs(p - up_left)
+                    pred = (left if pa <= pb and pa <= pc
+                            else above if pb <= pc else up_left)
+                left = cur[x] = (int(line[x]) + pred) % 256
+                up_left = above
+        else:
+            raise ValueError(f"{path}: unknown row filter {kind}")
+        out[y] = cur
+        up = cur
+    return out
+
+
+RIG_DIR = "artifacts/auto_extrinsics"  # the 4-camera rig, cam{i}_config.xml
+RIG_MASKS = "artifacts/final/mask_cam{}.png"  # its cleaned silhouettes
+RIG_HW = (486, 644)  # the size those are calibrated and drawn at
+RIG_FRAMES = 8
+# (dy, dx) of each rig frame's silhouettes: a subject that moves a little
+RIG_SHIFTS = ((0, 0), (0, 0), (1, 2), (2, 4), (3, 6), (-1, -2), (-2, -4),
+              (0, 3))
+
+
+def rig_cameras(image_hw):
+    """The rig's (K, dist, rvec, tvec) per camera from ``RIG_DIR``, the
+    intrinsics scaled from ``RIG_HW`` to ``image_hw``."""
+    from vbr_tpu_torch.utils import xmlio
+
+    sy, sx = image_hw[0] / RIG_HW[0], image_hw[1] / RIG_HW[1]
+    cams = []
+    for i in range(1, 5):
+        K, dist, rvec, tvec = xmlio.load_camera_config(RIG_DIR,
+                                                       f"cam{i}_config.xml")
+        K = K * np.array([[sx], [sy], [1.0]])
+        cams.append((K, dist, rvec, tvec))
+    return cams
+
+
+def rig_silhouettes(image_hw):
+    """(4, H, W) bool: the rig's silhouettes, subsampled to ``image_hw``."""
+    H, W = image_hw
+    ys = np.arange(H) * RIG_HW[0] // H
+    xs = np.arange(W) * RIG_HW[1] // W
+    return np.stack([read_png_gray(RIG_MASKS.format(i))[np.ix_(ys, xs)] > 0
+                     for i in range(1, 5)])
+
+
+def write_rig_data(root, image_hw, states):
+    """A data directory of the rig as the seam reads it, written with the
+    port's own writers: ``cam{i}/config.xml``, ``checkerboard.xml`` and the
+    background models ``models/mog_cam{i}.npz`` (compressed, as both
+    packages write them, by one thread each: ~1.25 GB at full size).
+    Returns (data directory, models directory)."""
+    from vbr_tpu_torch.utils import artifacts, xmlio
+
+    data = f"{root}/seam_rig_{image_hw[0]}x{image_hw[1]}"
+    shutil.rmtree(data, ignore_errors=True)
+    for i, cam in enumerate(rig_cameras(image_hw), start=1):
+        xmlio.save_camera_config(f"{data}/cam{i}", *cam)
+    xmlio.save_storage(f"{data}/checkerboard.xml",
+                       {"CheckerBoardWidth": 8, "CheckerBoardHeight": 6,
+                        "CheckerBoardSquareSize": 115})
+    with ThreadPoolExecutor(len(states)) as pool:  # zlib frees the GIL
+        list(pool.map(artifacts.save_mog_state,
+                      [f"{data}/models/mog_cam{i}.npz"
+                       for i in range(1, len(states) + 1)], states))
+    return data, f"{data}/models"
+
+
+def seam_calls(api, data, models, frames, size, device, model_kw):
+    """``assignment_api`` configured on ``data`` and driven through
+    ``frames`` and one call past their end: (each call's (positions,
+    colors), the end's, each call's host ms, the module's model)."""
+    from vbr_tpu_torch.utils.video import ArraySource
+
+    api.configure(data, ArraySource(frames), models, device=device,
+                  **model_kw)
+    outs, ms = [], []
+    for _ in frames:
+        t0 = time.perf_counter()
+        outs.append(api.set_voxel_positions(*size))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, api.set_voxel_positions(*size), ms, api._model
+
+
+def seam_phase(torch, dev, kernels, r, mask_params, image_hw, sizes,
+               build_root="build"):
+    """Phase 14: the reference's viewer seam, ``assignment_api``, on the
+    rig's geometry and silhouettes (see ``run``).  Returns its report."""
+    from vbr_tpu_torch.apps import assignment_api as api
+    from vbr_tpu_torch.models.visual_hull import VisualHull
+    from vbr_tpu_torch.ops import carve as carve_ops
+    from vbr_tpu_torch.pipelines import reconstruction
+    from vbr_tpu_torch.utils.config import (
+        DEFAULT_MASK_PARAMS, CameraParams, RigConfig)
+
+    H, W = image_hw
+    size, size_tables = sizes
+    t0 = time.perf_counter()
+    data, models = write_rig_data(build_root, image_hw, r.states)
+    sils = rig_silhouettes(image_hw)
+    frames = np.stack([
+        paint_silhouettes(r.rng, r.bg, np.roll(sils, shift, axis=(1, 2)))
+        for shift in RIG_SHIFTS[:RIG_FRAMES]])
+    print(f"  rig data written and {RIG_FRAMES} frames painted in "
+          f"{time.perf_counter() - t0:.2f} s; foreground of the silhouettes "
+          f"{np.round(sils.mean(axis=(1, 2)), 4).tolist()}")
+    model_kw = dict(rig=RigConfig(image_height=H, image_width=W),
+                    mask_params=mask_params or DEFAULT_MASK_PARAMS)
+
+    for k in kernels:
+        k.launches = 0
+    outs, end, ms, model = seam_calls(api, data, models, frames, size, dev,
+                                      model_kw)
+    sync(torch, dev)
+    seam_launches = {k.source.stem: k.launches for k in kernels}
+    n_occ = [len(p) for p, _ in outs]
+    expect(end == ([], []) and min(n_occ) > 0
+           and (dev.type == "cpu" or seam_launches["carve_blocked"]
+                >= RIG_FRAMES <= seam_launches["ccl_combined"]),
+           f"set_voxel_positions{size} on {dev.type}: {RIG_FRAMES} frames, "
+           f"then ([], []); occupied voxels {n_occ}; launches "
+           f"{seam_launches}")
+    t0 = time.perf_counter()
+    outs_cpu, end_cpu, _, model_cpu = seam_calls(
+        api, data, models, frames, size, "cpu", model_kw)
+    expect(outs == outs_cpu and end_cpu == ([], []),
+           f"positions and colours lists equal on {dev.type} and on the CPU "
+           f"(plain versions, {time.perf_counter() - t0:.1f} s)")
+    pts = np.asarray(outs[0][0])
+    expect(pts.shape == (n_occ[0], 3) and bool(np.isfinite(pts).all()),
+           "positions are finite (M, 3)")
+
+    # the seam's split: the step, the compaction, the lists
+    split = {"step": [], "compact": [], "tolist": []}
+    for fr in frames:
+        t0 = time.perf_counter()
+        occ, col = model.process_frame_fast(fr)
+        sync(torch, dev)
+        t1 = time.perf_counter()
+        pos, rgb = carve_ops.compact_voxels(occ, col, model.grid,
+                                            model.rig.scaling_factor)
+        t2 = time.perf_counter()
+        pos.tolist(), rgb.tolist()
+        t3 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(v * 1e3)
+    call_ms = float(np.median(ms[1:]))
+    split_ms = {k: float(np.median(v)) for k, v in split.items()}
+    print(f"  set_voxel_positions {call_ms:.3f} ms per call (median of "
+          f"{len(ms) - 1}; the first, which makes the model, {ms[0]:.1f} ms); "
+          f"split by parts: {split_ms}")
+
+    # the cameras as the viewer sees them: the host f64 values
+    cams = [CameraParams.from_arrays(*c) for c in rig_cameras(image_hw)]
+    pos_want, pal_want = reconstruction.get_cam_positions(cams, 115.0)
+    pos_got, pal_got = api.get_cam_positions()
+    rot_want = reconstruction.get_cam_rotation_matrices(cams)
+    rot_got = api.get_cam_rotation_matrices()
+    expect(np.array_equal(np.array(pos_got), np.array(pos_want))
+           and pal_got == pal_want
+           and all(np.array_equal(a, b) for a, b in zip(rot_got, rot_want)),
+           "get_cam_positions and get_cam_rotation_matrices equal to the "
+           f"host f64 values; centres {np.round(pos_got, 3).tolist()}")
+
+    # a grid that is not divisible by 8·sup: the table step
+    n_tab = 3
+    for k in kernels:
+        k.launches = 0
+    outs_t, _, _, model_t = seam_calls(api, data, models, frames[:n_tab],
+                                       size_tables, dev, model_kw)
+    sync(torch, dev)
+    tab_launches = {k.source.stem: k.launches for k in kernels}
+    outs_tc, _, _, _ = seam_calls(api, data, models, frames[:n_tab],
+                                  size_tables, "cpu", model_kw)
+    expect(model_t._ensure_btab() is None and outs_t == outs_tc
+           and min(len(p) for p, _ in outs_t) > 0
+           and (dev.type == "cpu" or tab_launches["carve_blocked"] == 0
+                and tab_launches["ccl_combined"] >= n_tab),
+           f"set_voxel_positions{size_tables} takes the table step; lists "
+           f"equal on {dev.type} and on the CPU over {n_tab} frames; "
+           f"occupied voxels {[len(p) for p, _ in outs_t]}; launches "
+           f"{tab_launches}")
+
+    # the three cleanup routes of the mask stage on one rig frame
+    route_names = ("device", "host", "device-xla")
+    masks, route_ms = {}, {}
+    for route in route_names:
+        t0 = time.perf_counter()
+        masks[route] = model.masks(frames[2], ccl_backend=route).cpu()
+        route_ms[route] = (time.perf_counter() - t0) * 1e3
+    expect(all(torch.equal(masks[route], masks["device"])
+               and torch.equal(model_cpu.masks(frames[2], ccl_backend=route),
+                               masks["device"]) for route in route_names)
+           and int((masks["device"] > 0).sum()) > 0,
+           f"masks(ccl_backend=device, host, device-xla) equal on "
+           f"{dev.type} and on the CPU; ms on {dev.type} {route_ms}")
+
+    # the projection-table cache on the second size's grid: the first model
+    # builds, the second loads
+    cache = f"{build_root}/seam_tables_{H}x{W}"
+    shutil.rmtree(cache, ignore_errors=True)
+
+    def cached_tables():
+        m = VisualHull(model_t.cameras, model_t.grid, model_t.rig,
+                       cache_dir=cache, device=dev)
+        t0 = time.perf_counter()
+        tables = m.tables
+        sync(torch, dev)
+        return tables, (time.perf_counter() - t0) * 1e3
+
+    built, build_ms = cached_tables()
+    files = sorted(os.listdir(cache))
+    loaded, load_ms = cached_tables()
+    expect(len(files) == 1 and sorted(os.listdir(cache)) == files
+           and torch.equal(built.valid, loaded.valid)
+           and torch.equal(built.lin_idx, loaded.lin_idx),
+           f"VisualHull(cache_dir=): the first model built {files[0]} in "
+           f"{build_ms:.0f} ms, the second loaded the same tables in "
+           f"{load_ms:.0f} ms")
+    api.configure(None, None, None)
+    return {"size": list(size), "frames": RIG_FRAMES,
+            "set_voxel_positions_ms": call_ms, "first_call_ms": ms[0],
+            "split_ms": split_ms, "occupied_voxels": n_occ,
+            "launches": seam_launches, "tables_size": list(size_tables),
+            "tables_launches": tab_launches,
+            "masks_route_ms": route_ms,
+            "table_cache_ms": {"build": build_ms, "load": load_ms}}
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
-        label_large_hw=(1088, 1920), label_cap=LABEL_CAP):
+        label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
+        seam_sizes=((128, 64, 128), (100, 50, 100))):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
-    on ``train_frames`` background frames per camera, and holding the
+    on ``train_frames`` background frames per camera, holding the
     labelling kernels at the cap ``label_cap`` and on a ``label_large_hw``
-    image besides; returns the per-kernel report."""
+    image besides, and driving the viewer seam at the two
+    ``set_voxel_positions`` sizes ``seam_sizes`` (the second not divisible
+    by 8·sup); returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -1234,9 +1599,20 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     if dev.type == "cuda":
         expect(k2_route["route"] == k5_route["route"] == "cluster",
                f"the production shape {(Hp, Wp)} takes the cluster route")
-        # last: it holds ~7 GB of the card while it runs
-        print("[11] K4 at its limits", flush=True)
+        # last of the kernel checks: it holds ~7 GB of the card
+        print("[11] K4 on a chunk of more than 2^31 mask bytes", flush=True)
         k4_err = max(k4_err, hold_frames_limits(torch, dev, cb))
+
+    # -- [14] the viewer seam on the rig ----------------------------------
+    print(f"[14] the viewer seam on the rig: set_voxel_positions"
+          f"{tuple(seam_sizes[0])} over {RIG_FRAMES} frames", flush=True)
+    seam = seam_phase(torch, dev, kernels, r, mask_params, image_hw,
+                      seam_sizes)
+
+    # -- [15] K1 and K4 at any camera count -------------------------------
+    print("[15] K1 and K4 at camera counts other than the rig's", flush=True)
+    worst = hold_camera_counts(torch, dev, cb)
+    k1_err, k4_err = max(k1_err, worst["K1"]), max(k4_err, worst["K4"])
 
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
@@ -1283,6 +1659,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "offline": {"ms_per_frame": offline_ms, "frames": STREAM_FRAMES,
                     "frames_per_launch": OFFLINE_NF,
                     "launches": off_launches, "profile": offline_profile},
+        "seam": seam,
     }
 
 

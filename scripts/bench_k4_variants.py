@@ -130,7 +130,7 @@ def gathers_before_first_use(lib_path):
     except OSError:
         return None
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        if "carve_frames_kernel" not in func or "ILi4ELi8E" not in func:
+        if "carve_frames_kernel" not in func or "ILi8E" not in func:
             continue
         pending = set()
         for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", func):

@@ -58,7 +58,8 @@ def test_phases_run_on_cpu_small_rig(capsys):
                                                           nz=32),
                             focal=120.0, mask_params=mp, train_frames=3,
                             k3_frames=2, label_large_hw=(16, 256),
-                            label_cap=16)
+                            label_cap=16,
+                            seam_sizes=((32, 16, 32), (20, 8, 16)))
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -107,6 +108,23 @@ def test_phases_run_on_cpu_small_rig(capsys):
                                "k1_ms_zeroing_flush": None}
     assert "equal to process_frame_fast" in out
     assert report["offline"]["frames"] == 16
+    # phase 14: the seam on the rig, both grids, the routes, the cache
+    seam = report["seam"]
+    assert seam["size"] == [32, 16, 32] and seam["frames"] == 8
+    assert min(seam["occupied_voxels"]) > 0
+    assert set(seam["split_ms"]) == {"step", "compact", "tolist"}
+    for what in ("set_voxel_positions(32, 16, 32) on cpu: 8 frames, then "
+                 "([], [])", "positions and colours lists equal",
+                 "get_cam_positions and get_cam_rotation_matrices equal",
+                 "set_voxel_positions(20, 8, 16) takes the table step",
+                 "masks(ccl_backend=device, host, device-xla) equal",
+                 "VisualHull(cache_dir=): the first model built"):
+        assert f"ok: {what}" in out
+    # phase 15: every camera count past the ring
+    for C in (55, 56, 64, 300):
+        assert f"ok: K1 with {C} cameras: occupancy and colours" in out
+    for C in (55, 56, 57, 64, 255, 300):
+        assert f"ok: K4 with {C} cameras, 8 frames: occupancy" in out
 
 
 def test_crossing_sweeps_meet_inside_every_band():
@@ -195,3 +213,62 @@ def test_random_chunk_drives_pixels_past_the_cached_slots():
     mark = gmm.slot_high_water(end.weight, end.sort_key)
     assert int(mark.max()) > gmm.K3_CACHE_SLOTS >= 7
     assert int(mark.min()) >= 3
+
+
+@pytest.mark.parametrize("cam", [1, 2, 3, 4])
+def test_png_reader_matches_pil_on_the_rig_masks(cam):
+    """The card's host has no image library: the script reads the rig's
+    silhouettes with its own reader, which must give PIL's pixels."""
+    import numpy as np
+    from PIL import Image
+
+    chip_smoke = _chip_smoke()
+    path = os.path.join(ROOT, chip_smoke.RIG_MASKS.format(cam))
+    got = chip_smoke.read_png_gray(path)
+    want = np.asarray(Image.open(path))
+    assert got.dtype == np.uint8 and got.shape == chip_smoke.RIG_HW
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("row_filter", [0, 1, 2, 3, 4])
+def test_png_reader_undoes_each_row_filter(tmp_path, row_filter):
+    """A PNG whose rows all carry one filter type, encoded here by the PNG
+    standard's definitions, reads back as PIL reads it."""
+    import struct
+    import zlib
+
+    import numpy as np
+    from PIL import Image
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(row_filter)
+    img = rng.integers(0, 256, (9, 13)).astype(np.int64)
+    img[4:] = (img[4:] // 64) * 64  # runs, so that predictions matter
+    rows, up = [], np.zeros(13, np.int64)
+    for line in img:
+        left = np.concatenate([[0], line[:-1]])
+        up_left = np.concatenate([[0], up[:-1]])
+        if row_filter == 4:
+            p = left + up - up_left
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, up_left))
+        else:
+            pred = [0 * line, left, up, (left + up) // 2][row_filter]
+        rows.append(bytes([row_filter]) + bytes(((line - pred) % 256)
+                                                .astype(np.uint8)))
+        up = line
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    path = tmp_path / "f.png"
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", 13, 9, 8, 0,
+                                                  0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                     + chunk(b"IEND", b""))
+    got = chip_smoke.read_png_gray(str(path))
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(got, img)

@@ -9,6 +9,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
+    "vbr_tpu_torch.apps.assignment_api",
     "vbr_tpu_torch.models.visual_hull",
     "vbr_tpu_torch.ops._cuda",
     "vbr_tpu_torch.ops.camera",
@@ -20,10 +21,13 @@ MODULES = [
     "vbr_tpu_torch.ops.gmm",
     "vbr_tpu_torch.ops.morphology",
     "vbr_tpu_torch.pipelines.background",
+    "vbr_tpu_torch.pipelines.reconstruction",
     "vbr_tpu_torch.utils.artifacts",
     "vbr_tpu_torch.utils.config",
     "vbr_tpu_torch.utils.device",
     "vbr_tpu_torch.utils.synthetic",
+    "vbr_tpu_torch.utils.video",
+    "vbr_tpu_torch.utils.xmlio",
     "chip_smoke",
 ]
 

@@ -210,11 +210,18 @@ def test_cuda_default_raises_without_a_card(models):
 
 
 def test_odd_grid_fast_path_raises(models):
+    """A grid not divisible by 8·sup has no blocked tables: the blocked
+    carve and ``stream`` raise, and ``process_frame_fast`` takes the table
+    step, equal to the table path."""
     _, mt, _, frames = models
     m2 = tvh.VisualHull(mt.cameras, tconfig.GridConfig(nx=20, ny=16, nz=16),
                         mt.rig, mt.mask_params, device="cpu")
     m2.bg_states, m2.mog_params = mt.bg_states, mt.mog_params
     with pytest.raises(ValueError, match="divisible"):
-        m2.process_frame_fast(frames[0])
-    occ, _ = m2.process_frame(frames[0])  # the table path still runs
+        m2.process_frame_fast(frames[0], carve_kernel="blocked")
+    with pytest.raises(ValueError, match="divisible"):
+        next(m2.stream(iter(frames)))
+    occ, col = m2.process_frame(frames[0])  # the table path still runs
     assert occ.shape == (20 * 16 * 16,)
+    occ_f, col_f = m2.process_frame_fast(frames[0])
+    assert torch.equal(occ_f, occ) and torch.equal(col_f, col)

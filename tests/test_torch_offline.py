@@ -311,6 +311,26 @@ def test_k4_departures_edit_the_source_once(name):
     assert src != tcb.K4.source.read_text() or not edits
 
 
+def _camera_counts_script():
+    spec = importlib.util.spec_from_file_location(
+        "bench_camera_counts",
+        Path(__file__).resolve().parents[1] / "scripts"
+        / "bench_camera_counts.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["K1", "K4"])
+def test_direct_at_four_cameras_edits_the_launcher_once(name):
+    """The camera-count timing script's copy that sends C = 4 to the
+    direct kernel is one edit matching the launcher's test of the rig's
+    camera count exactly once."""
+    old, new = _camera_counts_script().DIRECT_AT_4[name]
+    src = getattr(tcb, name).source.read_text()
+    assert src.count(old) == 1 and "kStaticC" in old and old != new
+
+
 def _card_check_case(case, carve_rig, three_camera_tables):
     jt, tt, _, masks = carve_rig
     thr, nf = 4, len(masks)

@@ -12,4 +12,4 @@ The package imports torch, numpy and scipy — never jax, cv2 or
 ``vbr_tpu``.  Entry points take ``device=`` and default to ``"cuda"``.
 """
 
-__all__ = ["models", "ops", "pipelines", "utils"]
+__all__ = ["apps", "models", "ops", "pipelines", "utils"]

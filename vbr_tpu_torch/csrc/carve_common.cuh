@@ -8,7 +8,9 @@
 // once (SMs x CTAs per SM from the occupancy calculator, at most the number
 // of sub-blocks), CTA i taking sub-blocks i, i + G, i + 2G, ..., which spreads
 // the active sub-blocks (they cluster around the subject) over the CTAs.
-// Both bring their tables into shared memory with 16-byte cp.async.
+// Their ring kernels (the rig's C = 4) bring the tables into shared memory
+// with 16-byte cp.async; their direct kernels (any other C) read them from
+// device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,7 +86,7 @@ __device__ __forceinline__ void walk_rounds(int nblk,
 
 struct Plan {
   int status;    // a cudaError_t
-  int c_static;  // 1: the kernel instantiated for C cameras; 0: run-time C
+  int c_static;  // 1: the ring kernel, C compiled in; 0: the direct kernel
   int smem;      // dynamic shared memory per CTA, bytes
   int per_sm;    // CTAs an SM holds
   int blocks;    // CTAs launched

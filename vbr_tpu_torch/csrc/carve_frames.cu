@@ -33,8 +33,8 @@
 //    and reads their flags kRound at a time into shared memory.
 //  * Four voxels per thread, 128 threads per sub-block: pk is one int4 per
 //    camera and thread, and for one frame the four voxels' counts are one
-//    32-bit word, a byte per voxel (a count is at most C, so bytes never
-//    carry: the launcher takes C <= kMaxC).  The threshold test is per
+//    32-bit word, a byte per voxel (a count is at most C = 4, so bytes
+//    never carry).  The threshold test is per
 //    byte (__vcmpgeu4), and a frame's occupancy is one 32-bit store at
 //    occ + (f * nblk + b) * 512 + 4 * tid (a warp writes 128 contiguous
 //    bytes).  The counters of kGroup frames live in registers; a chunk of
@@ -54,20 +54,22 @@
 //    16-byte stores (32 per frame plane, spread over the CTA), issued while
 //    the first stages' copies fly.
 //  * C = 4 is compiled in, and with it NF = 8, the offline path's chunk;
-//    any other camera count or chunk takes the same kernel with C or NF at
-//    run time (NF in groups of kGroup frames).  The launcher picks by C and
-//    NF alone.
+//    another chunk takes the same kernel with NF at run time (in groups of
+//    kGroup frames).
 //  * Registers for kMinCtas = 8 CTAs per SM (64 a thread).  How many of a
 //    thread's 128 gathers ptxas issues before it uses one follows the
 //    budget, and not monotonically: 32 at 64 registers, 5 at 80, where it
 //    interleaves them with their uses and the latencies add up (1.5x the
 //    time).  So the budget is fixed here, not left to ptxas.
 //
-// Limits: C <= kMaxC for the byte counters, and the ring's shared memory
-// (kStages x C x 2 KB per CTA) refuses more than 56 cameras before that;
-// a frame group's masks are addressed with int offsets from a 64-bit base,
-// so kGroup x C x H x W must fit an int (the tables' H < 1023, W < 1024
-// keep that for any C the ring takes).  The launcher refuses the rest.
+// Any other camera count, and a chunk whose kGroup x C x H x W does not fit
+// an int (a frame group's masks are addressed with int offsets from a
+// 64-bit base), takes carve_frames_direct_kernel: the same walk and
+// stores, pk read per camera straight from device memory (once per frame,
+// from L1 or L2 after the first), each voxel's count a 32-bit integer and
+// masks addressed with 64-bit offsets, so no camera count and no chunk is
+// refused.  At 56 and 57 cameras it ran in half the time of a run-time-C
+// ring of the same tables (PERF.md).  The launcher picks by C and NF.
 #include <limits.h>
 
 #include "carve_common.cuh"
@@ -82,24 +84,23 @@ constexpr int kGroup = 8;      // frames whose counters are registers
 constexpr int kMinCtas = 8;    // CTAs per SM that ptxas leaves registers for
 constexpr int kStaticC = 4;    // the rig's camera count
 constexpr int kStaticNF = 8;   // the offline path's chunk
-constexpr int kMaxC = 254;     // counts and threshold fit a byte
 constexpr uint32_t kOnes = 0x01010101u;
 
-// CS > 0: the number of cameras, fixed at compile time; 0: C at run time.
-// NS > 0: the number of frames, likewise.
-template <int CS, int NS>
+// The rig's camera count, compiled in; NS > 0: the number of frames,
+// likewise, 0: NF at run time.
+template <int NS>
 __global__ void __launch_bounds__(kThreads, kMinCtas) carve_frames_kernel(
     const int32_t* __restrict__ pk,      // (nblk, C, BV)
     const int32_t* __restrict__ active,  // (nblk,)
     const int32_t* __restrict__ full,    // (nblk,)
     const uint8_t* __restrict__ masks,   // (NF, C, H, W)
     uint8_t* __restrict__ occ,           // (NF, nblk, BV)
-    int nblk, int NF_rt, int C_rt, int H, int W,
+    int nblk, int NF_rt, int H, int W,
     uint32_t thr4,    // the view threshold, clamped to [0, C + 1], per byte
     uint32_t full4) {  // a full sub-block's occupancy word
   extern __shared__ int4 ring[];       // [kStages][C][kThreads]
   __shared__ uint8_t s_kind[kRound];   // 0 inactive, 1 count, 2 full
-  const int C = CS > 0 ? CS : C_rt;
+  constexpr int C = kStaticC;
   const int NF = NS > 0 ? NS : NF_rt;
   const int tid = threadIdx.x;
   const int stage_stride = C * kThreads;
@@ -122,15 +123,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) carve_frames_kernel(
         const int4* src = reinterpret_cast<const int4*>(
             pk + block_of(j) * C * kBV) + tid;
         int4* dst = mine + stage * stage_stride;
-        if constexpr (CS > 0) {
 #pragma unroll
-          for (int c = 0; c < CS; ++c) {
-            cp_async16(dst + c * kThreads, src + c * kThreads);
-          }
-        } else {
-          for (int c = 0; c < C; ++c) {
-            cp_async16(dst + c * kThreads, src + c * kThreads);
-          }
+        for (int c = 0; c < C; ++c) {
+          cp_async16(dst + c * kThreads, src + c * kThreads);
         }
       }
       cp_async_commit();
@@ -187,12 +182,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) carve_frames_kernel(
             }
           }
         };
-        if constexpr (CS > 0) {
 #pragma unroll
-          for (int c = 0; c < CS; ++c) count_camera(c);
-        } else {
-          for (int c = 0; c < C; ++c) count_camera(c);
-        }
+        for (int c = 0; c < C; ++c) count_camera(c);
 #pragma unroll
         for (int i = 0; i < kGroup; ++i) {
           if (f0 + i < NF) {
@@ -207,24 +198,73 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) carve_frames_kernel(
   });
 }
 
-template <int CS, int NS>
-Plan plan_for(int nblk, int C) {
-  return persistent_plan(carve_frames_kernel<CS, NS>, CS > 0, kThreads,
-                         kStages * C * kThreads * (int)sizeof(int4), nblk);
+// Any other C and any chunk: carve_frames_kernel's walk and stores, each
+// voxel's count an int, pk read where that kernel reads its stage.
+__global__ void __launch_bounds__(kThreads) carve_frames_direct_kernel(
+    const int32_t* __restrict__ pk,      // (nblk, C, BV)
+    const int32_t* __restrict__ active,  // (nblk,)
+    const int32_t* __restrict__ full,    // (nblk,)
+    const uint8_t* __restrict__ masks,   // (NF, C, H, W)
+    uint8_t* __restrict__ occ,           // (NF, nblk, BV)
+    int nblk, int NF, int C, int H, int W, int views_threshold,
+    uint32_t full4) {  // a full sub-block's occupancy word
+  __shared__ uint8_t s_kind[kRound];  // 0 inactive, 1 count, 2 full
+  const int tid = threadIdx.x;
+  const size_t cam = (size_t)H * W;         // one camera's mask
+  const size_t frame = (size_t)C * cam;     // one frame of masks
+  const size_t words = (size_t)nblk * kBV / 4;  // one frame of occ, words
+
+  walk_rounds(nblk, active, full, s_kind, [&](int n, auto block_of) {
+    for (int j = 0; j < n; ++j) {
+      const int kind = s_kind[j];
+      const size_t b = block_of(j);
+      uint32_t* out = reinterpret_cast<uint32_t*>(occ + b * kBV) + tid;
+      if (kind != 1) {
+        const uint32_t v = kind == 2 ? full4 : 0u;
+        for (int f = 0; f < NF; ++f) out[f * words] = v;
+        continue;
+      }
+      const int4* src = reinterpret_cast<const int4*>(pk + b * C * kBV) + tid;
+      for (int f = 0; f < NF; ++f) {
+        const uint8_t* mf = masks + f * frame;
+        int cnt[4] = {0, 0, 0, 0};
+        for (int c = 0; c < C; ++c) {
+          const int4 p = src[c * kThreads];
+          const uint8_t* mc = mf + c * cam;
+          cnt[0] += mask_hit(mc, p.x, W);
+          cnt[1] += mask_hit(mc, p.y, W);
+          cnt[2] += mask_hit(mc, p.z, W);
+          cnt[3] += mask_hit(mc, p.w, W);
+        }
+        uint32_t w = 0;  // byte e = voxel 4 * tid + e
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          w |= (cnt[e] >= views_threshold ? 1u : 0u) << (8 * e);
+        }
+        out[f * words] = w;
+      }
+    }
+  });
 }
 
-// The launch for this shape: C = kStaticC compiled in when it is the rig's,
-// and then NF = kStaticNF too when it is the chunk's; else run time.
+template <int NS>
+Plan plan_for(int nblk) {
+  return persistent_plan(carve_frames_kernel<NS>, true, kThreads,
+                         kStages * kStaticC * kThreads * (int)sizeof(int4),
+                         nblk);
+}
+
+// The launch for this shape: C = kStaticC through the ring, with NF =
+// kStaticNF compiled in when it is the chunk's; any other shape straight
+// from device memory.
 Plan plan_launch(int nblk, int NF, int C, int H, int W, bool& nf_static) {
   nf_static = false;
-  if (nblk < 0 || NF < 0 || C < 1 || C > kMaxC || H < 1 || W < 1 ||
-      (long long)kGroup * C * H * W > INT_MAX) {
-    return invalid_plan();
+  if (nblk < 0 || NF < 0 || C < 1 || H < 1 || W < 1) return invalid_plan();
+  if (C == kStaticC && (long long)kGroup * C * H * W <= INT_MAX) {
+    nf_static = NF == kStaticNF;
+    return nf_static ? plan_for<kStaticNF>(nblk) : plan_for<0>(nblk);
   }
-  if (C != kStaticC) return plan_for<0, 0>(nblk, C);
-  nf_static = NF == kStaticNF;
-  return nf_static ? plan_for<kStaticC, kStaticNF>(nblk, C)
-                   : plan_for<kStaticC, 0>(nblk, C);
+  return persistent_plan(carve_frames_direct_kernel, false, kThreads, 0, nblk);
 }
 
 }  // namespace
@@ -235,9 +275,9 @@ const char* vbr_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// out[0..4] = C fixed at compile time (0/1), shared bytes per CTA, CTAs per
-// SM, CTAs launched, NF fixed at compile time (0/1): what vbr_carve_frames
-// would launch for this shape.
+// out[0..4] = C fixed at compile time (0/1: the ring kernel or the direct
+// one), shared bytes per CTA, CTAs per SM, CTAs launched, NF fixed at
+// compile time (0/1): what vbr_carve_frames would launch for this shape.
 int vbr_carve_frames_plan(int nblk, int C, int NF, int* out) {
   bool nf_static;
   const Plan p = plan_launch(nblk, NF, C, 1, 1, nf_static);
@@ -257,15 +297,21 @@ int vbr_carve_frames(const int32_t* pk, const int32_t* active,
   const Plan p = plan_launch(nblk, NF, C, H, W, nf_static);
   if (p.status != 0) return p.status;
   if (nblk > 0 && NF > 0) {
+    const uint32_t full4 = C >= views_threshold ? kOnes : 0u;
+    if (!p.c_static) {
+      carve_frames_direct_kernel<<<p.blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+          pk, active, full, masks, occ, nblk, NF, C, H, W, views_threshold,
+          full4);
+      return static_cast<int>(cudaGetLastError());
+    }
     // a count is at most C, so a threshold past C + 1 changes nothing
     const int thr = views_threshold < 0 ? 0
                     : views_threshold > C + 1 ? C + 1 : views_threshold;
-    const uint32_t full4 = C >= views_threshold ? kOnes : 0u;
-    auto kernel = !p.c_static ? carve_frames_kernel<0, 0>
-                  : nf_static ? carve_frames_kernel<kStaticC, kStaticNF>
-                              : carve_frames_kernel<kStaticC, 0>;
+    auto kernel = nf_static ? carve_frames_kernel<kStaticNF>
+                            : carve_frames_kernel<0>;
     kernel<<<p.blocks, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-        pk, active, full, masks, occ, nblk, NF, C, H, W,
+        pk, active, full, masks, occ, nblk, NF, H, W,
         (uint32_t)thr * kOnes, full4);
   }
   return static_cast<int>(cudaGetLastError());

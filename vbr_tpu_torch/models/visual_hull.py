@@ -12,8 +12,13 @@ through kernel K3, or loaded) + carve tables, with the per-frame step
 ``process_frame_fast`` and ``stream`` run that step (``_full_step``, the
 counterpart of ``_full_step_pallas`` with ``ingest="bgr"``) and redo a
 frame exactly through the host cleanup when a camera overflows the
-device component tables.  ``process_frame`` is the plain f64 table path.
-Their outputs are torch tensors on the model's device.
+device component tables.  On a grid whose dims are not divisible by
+8·sup there are no blocked tables: ``process_frame_fast`` then runs the
+table step (``_full_step_tables``: the same mask stages, then the f64
+table carve), and ``stream`` and ``process_frames_offline`` refuse.
+``process_frame`` is the plain f64 table path.  ``VisualHull(cache_dir=)``
+keeps the f64 tables in the JAX package's npz cache.  Their outputs are
+torch tensors on the model's device.
 ``process_frames_offline`` runs the mask stages over every (frame, camera)
 image of a chunk and carves the chunk in one launch of kernel K4
 (``_full_step_frames``); it returns host arrays.
@@ -22,7 +27,7 @@ image of a chunk and carves the chunk in one launch of kernel K4
 from __future__ import annotations
 
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +35,7 @@ import torch
 from vbr_tpu_torch.ops import carve as carve_ops
 from vbr_tpu_torch.ops import carve_blocked, ccl
 from vbr_tpu_torch.ops.gmm import MOGState
-from vbr_tpu_torch.pipelines import background
+from vbr_tpu_torch.pipelines import background, reconstruction
 from vbr_tpu_torch.utils import artifacts
 from vbr_tpu_torch.utils.config import (
     DEFAULT_MASK_PARAMS,
@@ -42,6 +47,8 @@ from vbr_tpu_torch.utils.config import (
 )
 from vbr_tpu_torch.utils.device import resolve_device
 
+_UNBUILT = object()  # blocked tables not asked for yet
+
 
 class VisualHull:
     """Multi-camera visual-hull reconstruction model."""
@@ -52,6 +59,7 @@ class VisualHull:
         grid: GridConfig = GridConfig(),
         rig: RigConfig = RigConfig(),
         mask_params: Sequence[MaskParams] = DEFAULT_MASK_PARAMS,
+        cache_dir: Optional[str] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -59,10 +67,13 @@ class VisualHull:
         self.grid = grid
         self.rig = rig
         self.mask_params = list(mask_params)
+        self.cache_dir = cache_dir
         self.bg_states: List[MOGState] = []
         self.mog_params: List[MOGParams] = []
-        self._tables = None  # f64 table path, built on first process_frame
-        self._btab = None  # blocked carve tables, built on first fast step
+        self._tables = None  # f64 table path, built on first use
+        # blocked carve tables, built on the first fast step; None where
+        # the grid cannot be blocked
+        self._btab = _UNBUILT
         self._stacked_fz = None
 
     @property
@@ -71,9 +82,16 @@ class VisualHull:
 
     @property
     def tables(self) -> carve_ops.ProjectionTables:
+        """The f64 projection tables; with ``cache_dir`` loaded from (or
+        built into) the npz cache both packages share."""
         if self._tables is None:
-            self._tables = carve_ops.build_projection_tables(
-                self.cameras, self.grid, self.image_hw, self.device)
+            if self.cache_dir:
+                self._tables = artifacts.cached_projection_tables(
+                    self.cameras, self.grid, self.image_hw, self.cache_dir,
+                    self.device)
+            else:
+                self._tables = carve_ops.build_projection_tables(
+                    self.cameras, self.grid, self.image_hw, self.device)
         return self._tables
 
     def _frames(self, frames) -> torch.Tensor:
@@ -101,16 +119,46 @@ class VisualHull:
                 self.bg_states, p0, self.device)
 
     def _ensure_btab(self):
-        if self._btab is None:
+        """The blocked carve tables, built at first call; None where the
+        grid (or the image) does not fit their geometry."""
+        if self._btab is _UNBUILT:
             sub = (8, 8, 8)
             sup = tuple(max(1, min(p, n // s))
                         for n, s, p in zip(self.grid.shape, sub, (2, 2, 4)))
-            self._btab = carve_blocked.build_block_tables(
-                self.cameras, self.grid, self.image_hw, sub=sub, sup=sup,
-                color_camera=self.rig.color_camera, device=self.device,
-            )
+            try:
+                self._btab = carve_blocked.build_block_tables(
+                    self.cameras, self.grid, self.image_hw, sub=sub, sup=sup,
+                    color_camera=self.rig.color_camera, device=self.device,
+                )
+            except ValueError:  # e.g. grid dims not divisible by 8·sup
+                self._btab = None
+        return self._btab
+
+    def _blocked_tables_for(self, what: str):
+        """The blocked tables, or a ``ValueError`` naming what needs them."""
+        btab = self._ensure_btab()
+        if btab is None:
+            raise ValueError(
+                f"{what} needs grid dims divisible by 8·sup (8-divisible; got "
+                f"{self.grid.shape}); use process_frame_fast or process_frame")
+        return btab
 
     # -- setup ------------------------------------------------------------
+
+    @classmethod
+    def from_data_dir(cls, data_dir: str, grid: GridConfig = GridConfig(),
+                      train_background: bool = True, **kw) -> "VisualHull":
+        """A model of the rig in ``data_dir`` (``cam*/config.xml``); ``kw``
+        goes to the constructor.  ``train_background=True`` would decode
+        ``cam*/background.avi``, which waits for a video decoder without
+        OpenCV: pass False, then :meth:`load_background_models` or
+        :meth:`train_background` on decoded frames."""
+        if train_background:
+            raise NotImplementedError(
+                "from_data_dir(train_background=True) decodes the rig's "
+                "background videos, and the port has no video decoder yet; "
+                "pass train_background=False and load or train the models")
+        return cls(reconstruction.load_rig(data_dir), grid, **kw)
 
     def train_background(self, frames_per_camera: Sequence[np.ndarray]):
         """Train one MOG model per camera on its decoded background
@@ -135,11 +183,24 @@ class VisualHull:
 
     # -- per-frame step ---------------------------------------------------
 
-    def masks(self, frames) -> torch.Tensor:
-        """(C, H, W) u8 cleaned masks: the device cleanup, with each
-        overflowed camera redone exactly by the host cleanup."""
-        self._ensure_fast_state()
+    def masks(self, frames, ccl_backend: str = "device") -> torch.Tensor:
+        """(C, H, W) u8 cleaned masks on the model's device.
+
+        ``ccl_backend="device"`` (default) runs the mask stages of all
+        cameras at once with the device cleanup (kernel K2), each overflowed
+        camera redone exactly by the host cleanup; ``"host"`` and
+        ``"device-xla"`` run ``background.extract_foreground_mask`` camera
+        by camera with that cleanup route, each camera's background model
+        on the model's device.  All three give the same masks."""
         frames_d = self._frames(frames)
+        if ccl_backend != "device":
+            return torch.stack([
+                background.extract_foreground_mask(
+                    MOGState(*(t.to(self.device) for t in self.bg_states[c])),
+                    frames_d[c], self.mask_params[c], self.mog_params[c],
+                    ccl_backend=ccl_backend)
+                for c in range(frames_d.shape[0])])
+        self._ensure_fast_state()
         raw = background.raw_masks_batched_fz(
             self._stacked_fz, frames_d, self.mask_params,
             self.mog_params[0].use_hsv)
@@ -185,13 +246,38 @@ class VisualHull:
             views_threshold=self.rig.views_threshold, layout=layout,
         )
 
-    def process_frame_fast(self, frames, layout: str = "canonical"):
-        """The fused per-frame step → (occ, colors) in ``layout`` order
-        (see ``carve_blocked.carve_blocked``).  Needs grid dims divisible
-        by 8·sup (``ValueError`` otherwise; use :meth:`process_frame`)."""
+    def process_frame_fast(self, frames, layout: str = "canonical",
+                           carve_kernel: str = "auto"):
+        """The fused per-frame step → (occ, colors).
+
+        ``carve_kernel="blocked"`` carves with kernel K1 on the blocked
+        tables and returns ``layout`` order (see
+        ``carve_blocked.carve_blocked``); ``"tables"`` runs the table step
+        (the f64 table carve after the same mask stages) and returns
+        canonical order whatever ``layout``; ``"auto"`` takes the blocked
+        carve where the grid has blocked tables and the table step where it
+        has not (dims not divisible by 8·sup)."""
         self._ensure_fast_state()
-        self._ensure_btab()
+        if carve_kernel == "auto":
+            carve_kernel = ("tables" if self._ensure_btab() is None
+                            else "blocked")
+        if carve_kernel not in ("blocked", "tables"):
+            raise ValueError(f"unknown carve_kernel {carve_kernel!r}")
         frames_d = self._frames(frames)
+        if carve_kernel == "tables":
+            occ, col, ovf = _full_step_tables(
+                self._stacked_fz, frames_d, self.tables,
+                mask_params=self.mask_params,
+                use_hsv=self.mog_params[0].use_hsv,
+                fig_thresholds=self._fig_thresholds,
+                inner_thresholds=self._inner_thresholds,
+                views_threshold=self.rig.views_threshold,
+                color_camera=self.rig.color_camera,
+            )
+            if bool(ovf.any()):  # exact redo through the host cleanup
+                return self.process_frame(frames_d)
+            return occ, col
+        self._blocked_tables_for("the blocked carve")
         occ, col, ovf = self._dispatch(frames_d, layout)
         if bool(ovf.any()):
             return self._redo(frames_d, layout)
@@ -203,7 +289,7 @@ class VisualHull:
         decode and redo checks overlap device work.  Yields (occ, colors)
         per frame in ``layout`` order."""
         self._ensure_fast_state()
-        self._ensure_btab()
+        self._blocked_tables_for("stream")
         pending = None
         for frames in frames_iter:
             frames_d = self._frames(frames)
@@ -238,15 +324,10 @@ class VisualHull:
         occupied voxels only.  Returns ``(occ, colors)``: ``occ`` (F, N)
         bool canonical occupancy and ``colors`` a per-frame list of
         ``(idx (M_f,) i64, col (M_f, 3) u8 BGR)``, or None with
-        ``with_colors=False``; all numpy.  Needs grid dims divisible by 8
-        (``ValueError`` otherwise; use :meth:`process_frame`)."""
+        ``with_colors=False``; all numpy.  Needs grid dims divisible by 8·sup
+        (``ValueError`` otherwise)."""
         self._ensure_fast_state()
-        try:
-            self._ensure_btab()
-        except ValueError as e:
-            raise ValueError(
-                "process_frames_offline needs 8-divisible grid dims "
-                f"(got {self.grid.shape}); use process_frame instead") from e
+        self._blocked_tables_for("process_frames_offline")
         frames = np.asarray(frames)
         F = frames.shape[0]
         NF = int(frames_per_launch)
@@ -316,6 +397,23 @@ def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
         masks, frames[btab.color_camera], btab,
         views_threshold=views_threshold, layout=layout,
     )
+    return occ, col, ovf
+
+
+def _full_step_tables(stacked_fz, frames, tables, *, mask_params, use_hsv,
+                      fig_thresholds, inner_thresholds, views_threshold,
+                      color_camera):
+    """The per-frame pipeline on the table path: the mask stages of
+    :func:`_full_step`, then the f64 table carve.  Returns (occ (N,) bool,
+    colors (N, 3) u8, overflow (C,) bool), canonical order."""
+    raw = background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
+                                          use_hsv)
+    cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
+                                           inner_thresholds)
+    masks = background.finalize_masks_batched(cleaned, mask_params)
+    occ, col = carve_ops.carve_from_tables(
+        masks, frames, tables.valid, tables.lin_idx,
+        views_threshold=views_threshold, color_camera=color_camera)
     return occ, col, ovf
 
 

@@ -255,7 +255,10 @@ def carve_blocked_kernel(pk, lcc, active, full, masks, image, *,
 
     CUDA tensors launch ``csrc/carve_blocked.cu`` (persistent CTAs, four
     voxels per thread: byte e of an output word is voxel 4v + e); CPU
-    tensors run :func:`carve_blocked_plain`."""
+    tensors run :func:`carve_blocked_plain`.  The kernel takes any number
+    of cameras: the rig's C = 4 is compiled in and brings its tables
+    through a ring in shared memory; another C reads them straight from
+    device memory (:func:`k1_launch_plan` says which)."""
     if pk.device.type == "cpu":
         return carve_blocked_plain(pk, lcc, active, full, masks, image,
                                    color_camera=color_camera,
@@ -290,19 +293,24 @@ _PLAN_KEYS = ("c_static", "shared_bytes_per_cta", "ctas_per_sm", "ctas")
 
 def _launch_plan(kernel: CudaKernel, symbol: str, keys, *args: int) -> dict:
     """What a carve's ``*_plan`` entry point reports, by ``keys``; the
-    ``*_static`` ones (C, or NF, fixed at compile time) are booleans."""
+    ``*_static`` ones (C, or NF, fixed at compile time) are booleans, and
+    ``route`` follows from C: ``"ring"`` (C compiled in, tables through
+    shared memory) or ``"direct"`` (read from device memory)."""
     fn = kernel.function(symbol, [ctypes.c_int] * len(args)
                          + [ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * len(keys))()
     kernel.status_ok(fn(*args, out), symbol)
-    return {k: bool(v) if k.endswith("_static") else v
+    plan = {k: bool(v) if k.endswith("_static") else v
             for k, v in zip(keys, out)}
+    plan["route"] = "ring" if plan["c_static"] else "direct"
+    return plan
 
 
 def k1_launch_plan(nblk: int, C: int) -> dict:
     """What K1 launches for ``nblk`` sub-blocks and ``C`` cameras on the
     current CUDA device: whether C is fixed at compile time, shared bytes
-    per CTA, CTAs per SM and CTAs (a grid that does not grow with nblk)."""
+    per CTA, CTAs per SM, CTAs (a grid that does not grow with nblk) and
+    the route of the tables (``"ring"`` or ``"direct"``)."""
     return _launch_plan(K1, "vbr_carve_blocked_plan", _PLAN_KEYS, nblk, C)
 
 
@@ -389,9 +397,12 @@ def carve_frames_kernel(pk, active, full, masks, *, views_threshold: int):
 
     CUDA tensors launch ``csrc/carve_frames.cu`` (persistent CTAs, four
     voxels per thread: byte e of a frame's output word is voxel 4v + e);
-    CPU tensors run :func:`carve_frames_plain`.  The kernel takes at most
-    56 cameras (its table ring in shared memory) and raises
-    ``RuntimeError`` beyond; the chunk's frames are not limited."""
+    CPU tensors run :func:`carve_frames_plain`.  The kernel takes any
+    number of cameras and frames: the rig's C = 4 is compiled in (and NF
+    = 8, the offline chunk) and runs with packed byte counters and its
+    tables through a ring in shared memory; another C reads the tables
+    straight from device memory and counts in 32-bit integers
+    (:func:`k4_launch_plan` says which)."""
     if pk.device.type == "cpu":
         return carve_frames_plain(pk, active, full, masks,
                                   views_threshold=views_threshold)

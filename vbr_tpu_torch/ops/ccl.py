@@ -13,6 +13,12 @@ Counterpart of ``vbr_tpu/ops/ccl.py``:
   * ``clean_mask_host`` — the exact host cleanup on ``scipy.ndimage``
     (8-connectivity labels, 3×3 maximum filter) in place of OpenCV; the
     fallback for a camera whose overflow bit is set.
+  * ``label_components``, ``component_areas`` and ``clean_mask`` — the JAX
+    package's one-image cleanup in plain torch ops, on the tensor's device
+    (the ``"device-xla"`` route of the mask stage).  Its labels are those
+    of the unpadded image, so they are not kernel K5's: K5 labels images
+    padded to (8, 128) multiples, whose background padding joins
+    components, with padded linear indices.
 
 Semantics (the reference's hierarchy walk): foreground components with
 area ≥ figure_threshold are kept and drawn solid; their holes (background
@@ -28,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
-from vbr_tpu_torch.ops.ccl_label import BIG, label_components_combined
+from vbr_tpu_torch.ops.ccl_label import (BIG, label_components_batched_plain,
+                                         label_components_combined)
 
 
 def _pad_to_tiles(H, W):
@@ -272,3 +279,80 @@ def clean_mask_host(raw_mask, figure_threshold: float,
     fill = hole & (poly_area < inner_threshold)
     out = kept_img | fill[labels_b]
     return np.where(out, np.uint8(255), np.uint8(0))
+
+
+def label_components(fg: torch.Tensor, max_iters: int = 64) -> torch.Tensor:
+    """8-connected component labels of a (H, W) boolean mask: for a
+    foreground pixel the minimum linear index of its component, 2³⁰ on the
+    background.  The JAX package's iteration (3×3 neighbour min, then row
+    and column segmented min-scans, until nothing changes or ``max_iters``
+    iterations) in plain torch ops on ``fg``'s device."""
+    labels, _ = label_components_batched_plain(fg[None], max_iters)
+    return labels[0]
+
+
+def component_areas(labels: torch.Tensor) -> torch.Tensor:
+    """Pixel count per label root, indexed by linear pixel index (HW,) i32."""
+    flat = labels.reshape(-1)
+    valid = flat < BIG
+    idx = torch.where(valid, flat, 0).long()
+    return torch.zeros(flat.numel(), dtype=torch.int32,
+                       device=labels.device).index_add_(0, idx, valid.int())
+
+
+def clean_mask(raw_mask: torch.Tensor, figure_threshold: float,
+               inner_threshold: float, max_iters: int = 64) -> torch.Tensor:
+    """The contour-hierarchy cleanup of one (H, W) u8 {0, 255} mask through
+    :func:`label_components` (see the module docstring); (H, W) u8
+    {0, 255} on the mask's device."""
+    H, W = raw_mask.shape
+    dev = raw_mask.device
+    fg = raw_mask > 0
+
+    # 1. foreground components kept by pixel area
+    labels_f = label_components(fg, max_iters)
+    areas_f = component_areas(labels_f)
+    flat_f = labels_f.reshape(-1)
+    valid_f = flat_f < BIG
+    pix_area_f = torch.where(valid_f,
+                             areas_f[torch.where(valid_f, flat_f, 0).long()], 0)
+    kept = valid_f & (pix_area_f >= figure_threshold)
+
+    # 2. background components; those touching the border are "outside"
+    bg = ~fg
+    labels_b = label_components(bg, max_iters)
+    flat_b = labels_b.reshape(-1)
+    valid_b = flat_b < BIG
+    border = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    border[0, :] = border[-1, :] = True
+    border[:, 0] = border[:, -1] = True
+    outside_root = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    outside_root[flat_b[(border & bg).reshape(-1)].long()] = True
+    b_idx = torch.where(valid_b, flat_b, 0).long()
+    hole = valid_b & ~outside_root[b_idx]  # enclosed background
+
+    # 3. a hole belongs to a kept component when a kept pixel touches it
+    kept_adjacent = F.max_pool2d(kept.reshape(1, 1, H, W).float(), 3,
+                                 stride=1, padding=1).reshape(-1) > 0
+    hole_idx = torch.where(hole, flat_b, 0).long()
+    touch_kept = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    touch_kept[hole_idx[hole & kept_adjacent]] = True
+    in_kept_hole = hole & touch_kept[hole_idx]
+
+    # 4. hole area in cv2.contourArea terms: pixels + 2×2 corner counts
+    hole_area_pix = component_areas(labels_b)[hole_idx]
+    lab_img = torch.where(bg.reshape(-1), flat_b, BIG).reshape(H, W)
+    lp = F.pad(lab_img, (1, 1, 1, 1), value=BIG)
+    blabel = torch.minimum(torch.minimum(lp[:-1, :-1], lp[:-1, 1:]),
+                           torch.minimum(lp[1:, :-1], lp[1:, 1:])).reshape(-1)
+    contrib = _corner_contrib4(F.pad(bg, (1, 1, 1, 1))[None])[0].reshape(-1)
+    bvalid = blabel < BIG
+    corner_area = torch.zeros(H * W, dtype=torch.float32, device=dev)
+    corner_area.index_add_(0, torch.where(bvalid, blabel, 0).long(),
+                           torch.where(bvalid, contrib * 0.25, 0.0))
+    hole_poly_area = hole_area_pix.float() + corner_area[hole_idx]
+    carve = in_kept_hole & (hole_poly_area >= inner_threshold)
+
+    # 5. kept foreground and the small holes of kept components
+    out = kept | (in_kept_hole & ~carve)
+    return torch.where(out.reshape(H, W), 255, 0).to(torch.uint8)

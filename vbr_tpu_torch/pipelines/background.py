@@ -6,8 +6,9 @@ Counterpart of ``vbr_tpu/pipelines/background.py``:
 ``stack_states``, ``stack_frozen``
 (per-camera states → one prefix-compressed stacked state),
 ``raw_masks_batched_fz`` (HSV + compressed frozen apply + per-camera
-pre-morphology) and ``finalize_masks_batched`` (per-camera
-post-morphology + binarize).  The ROI and YUV ingest variants are not
+pre-morphology), ``finalize_masks_batched`` (per-camera post-morphology +
+binarize) and ``extract_foreground_mask`` (one camera's whole mask stage,
+with its three cleanup routes).  The ROI and YUV ingest variants are not
 ported yet.
 """
 
@@ -18,9 +19,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from vbr_tpu_torch.ops import ccl, gmm, morphology
 from vbr_tpu_torch.ops import color as color_ops
-from vbr_tpu_torch.ops import gmm, morphology
-from vbr_tpu_torch.utils.config import MOGParams
+from vbr_tpu_torch.utils.config import MaskParams, MOGParams
 
 
 def train_background_model(background_frames: np.ndarray,
@@ -29,6 +30,49 @@ def train_background_model(background_frames: np.ndarray,
     """Train the production MOG model (HSV, learning rate 1/min(n,
     history)) over (T, H, W, 3) u8 BGR frames on ``device``."""
     return gmm.train_mog(background_frames, params, device=device)
+
+
+def extract_foreground_mask(
+    state: gmm.MOGState,
+    frame,  # (H, W, 3) u8 BGR, numpy or torch
+    mask_params: MaskParams = MaskParams(),
+    mog_params: MOGParams = MOGParams(),
+    ccl_backend: str = "device",
+) -> torch.Tensor:
+    """One camera's mask stage → (H, W) u8 {0, 255} on the state's device:
+
+      BGR→HSV → frozen MOG apply → optional pre open/close (3×3) →
+      contour-hierarchy cleanup → optional post open/close (2×2) → binarize.
+
+    ``ccl_backend`` picks the cleanup, all three with the same result:
+    ``"device"`` (default) labels with kernel K2 (``ccl.clean_masks_batched``)
+    and redoes the image exactly on the host when it overflows a component
+    table; ``"host"`` is ``ccl.clean_mask_host`` on scipy; ``"device-xla"``
+    is ``ccl.clean_mask`` in plain torch ops on the device."""
+    if ccl_backend not in ("device", "host", "device-xla"):
+        raise ValueError(f"unknown ccl_backend {ccl_backend!r}")
+    raw = gmm.extract_mask(state, frame, mog_params)
+    if mask_params.opening_pre:
+        raw = morphology.opening(raw, (3, 3))
+    if mask_params.closing_pre:
+        raw = morphology.closing(raw, (3, 3))
+
+    def host():
+        return torch.from_numpy(ccl.clean_mask_host(
+            raw.cpu().numpy(), mask_params.figure_threshold,
+            mask_params.inner_threshold)).to(raw.device)
+
+    if ccl_backend == "host":
+        cleaned = host()
+    elif ccl_backend == "device-xla":
+        cleaned = ccl.clean_mask(raw, mask_params.figure_threshold,
+                                 mask_params.inner_threshold)
+    else:
+        batch, ovf = ccl.clean_masks_batched(
+            raw[None], (float(mask_params.figure_threshold),),
+            (float(mask_params.inner_threshold),))
+        cleaned = host() if bool(ovf[0]) else batch[0]  # exact redo
+    return finalize_masks_batched(cleaned[None], (mask_params,))[0]
 
 
 def stack_states(states: Sequence[gmm.MOGState]) -> gmm.MOGState:
