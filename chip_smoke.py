@@ -79,7 +79,31 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
  15. K1 and K4 at camera counts other than the rig's four (K1 55, 56,
      64, 300; K4 55, 56, 57, 64, 255, 300), which take the direct kernel,
      on random tables, bit-equal to their plain versions, with each launch
-     plan (``scripts/bench_camera_counts.py`` times them at full size).
+     plan (``scripts/bench_camera_counts.py`` times them at full size);
+ 16. the surface path at ``("cubes", "join")``, capacity 32768:
+     ``VisualHull.process_frame_surface`` on phase 5's frame and on two of
+     phase 14's rig frames, triangles, occupancy and colours bit-equal to
+     the CPU (the CPU side runs ``surface_program`` on the occupancy it
+     carved before, and ``extract_mesh`` where that reports more than the
+     capacity), K1 and K2 launches counted, active cells and the 128-cell
+     blocks they lie in (more than ``block_capacity`` = 4096 blocks, or
+     more cells than the capacity, send the step's occupancy to
+     ``extract_mesh``; a component-table overflow redoes the frame on the
+     table path), triangles, whether either happened; ms per frame on both inputs beside ``process_frame_fast``;
+     on the rig frame ``surface_program`` alone (device ms, bound, a
+     profile), the triangle download and the host placement apart, the
+     wire's numpy tail, and profiles of both steps; ``stream_surface``
+     over phase 6's 16 frames and over the rig's 8 with
+     ``transfer="full"`` and ``"wire"``, each frame equal to
+     ``process_frame_surface``, ms per frame; then, not timed, on the rig
+     frame: ``("tetrahedra", "separate")`` and ``("cubes", "separate")``,
+     a capacity below the active cells (``extract_mesh`` on the step's
+     occupancy, same triangles),
+     ``extract_surface`` equal to ``process_frame_surface``; three
+     separated cubes through ``surface_program(block_capacity=2)``
+     (forced over capacity, equal to the CPU); ``textured_frame`` card vs
+     CPU; ``surface_program`` queued under
+     ``torch.cuda.set_sync_debug_mode("error")``.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -194,19 +218,21 @@ def paint_silhouettes(rng, bg, sils, speckle=200, holes=4):
 SPIN_CYCLES = 400_000  # device clock cycles: ~200 us at the H100's 1.7-2 GHz
 
 
-def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None):
+def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None,
+             spin_cycles=SPIN_CYCLES):
     """Median ms of ``fn`` over ``reps`` calls, ``flush()`` (a pass over a
     buffer larger than L2) before each.  With ``setup``, each call is
     ``fn(setup())`` and ``setup`` is not timed (for a kernel that updates
     its input in place).
 
     On the card the time is the device's: after the flush a spin kernel
-    keeps the device busy for ~200 us, and only then come the start event,
-    ``fn`` and the end event.  The host enqueues all three while the spin
-    runs, so the interval between the events holds what ``fn`` launched
-    and no wait for the host (as long as the host needs less than the
-    spin for ``fn``; a plain version of many launches may not).  On the
-    CPU it is the host clock around ``fn``."""
+    keeps the device busy for ``spin_cycles`` (~200 us), and only then come
+    the start event, ``fn`` and the end event.  The host enqueues all three
+    while the spin runs, so the interval between the events holds what
+    ``fn`` launched and no wait for the host (as long as the host needs
+    less than the spin for ``fn``; a plain version of many launches may
+    not, and a function of many launches needs a longer spin).  On the CPU
+    it is the host clock around ``fn``."""
     def args():
         return () if setup is None else (setup(),)
 
@@ -219,7 +245,7 @@ def timed_ms(fn, torch, dev, reps=20, flush=None, setup=None):
         if dev.type == "cuda":
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin_cycles)
             s.record()
             fn(*a)
             e.record()
@@ -973,7 +999,9 @@ def seam_calls(api, data, models, frames, size, device, model_kw):
 def seam_phase(torch, dev, kernels, r, mask_params, image_hw, sizes,
                build_root="build"):
     """Phase 14: the reference's viewer seam, ``assignment_api``, on the
-    rig's geometry and silhouettes (see ``run``).  Returns its report."""
+    rig's geometry and silhouettes (see ``run``).  Returns its report and
+    the rig's models on the card and on the CPU with its frames (for
+    phase 16)."""
     from vbr_tpu_torch.apps import assignment_api as api
     from vbr_tpu_torch.models.visual_hull import VisualHull
     from vbr_tpu_torch.ops import carve as carve_ops
@@ -1106,13 +1134,320 @@ def seam_phase(torch, dev, kernels, r, mask_params, image_hw, sizes,
            f"{build_ms:.0f} ms, the second loaded the same tables in "
            f"{load_ms:.0f} ms")
     api.configure(None, None, None)
-    return {"size": list(size), "frames": RIG_FRAMES,
+    rig = SimpleNamespace(model=model, model_cpu=model_cpu, frames=frames)
+    return rig, {"size": list(size), "frames": RIG_FRAMES,
             "set_voxel_positions_ms": call_ms, "first_call_ms": ms[0],
             "split_ms": split_ms, "occupied_voxels": n_occ,
             "launches": seam_launches, "tables_size": list(size_tables),
             "tables_launches": tab_launches,
             "masks_route_ms": route_ms,
             "table_cache_ms": {"build": build_ms, "load": load_ms}}
+
+
+SURFACE_CAPACITY = 32768  # the surface entry points' default
+# their default rule: what skimage's Lewiner MC33 resolves on a binary volume
+SURFACE_PAIR = ("cubes", "join")
+SURFACE_RIG_FRAMES = (0, 4)  # phase 14's frames held card vs CPU
+# ~2 ms: ``surface_program`` enqueues some 60 launches, more than the
+# default spin covers
+SURFACE_SPIN_CYCLES = 4_000_000
+
+
+def three_cubes():
+    """(40, 8, 8) bool: three 2-voxel cubes far apart along x, whose active
+    cells (at most 128) lie in at least three 128-cell blocks."""
+    vol = np.zeros((40, 8, 8), bool)
+    for x0 in (2, 16, 30):
+        vol[x0:x0 + 2, 2:4, 2:4] = True
+    return vol
+
+
+def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
+                  occ_c, col_c, seq, rig, step_ms):
+    """Phase 16: the surface path (see ``run``) on ``model`` (the seeded
+    synthetic rig) and ``rig.model`` (phase 14's rig), against the CPU
+    occupancies ``occ_c``/``col_c`` of ``frame0`` and those of the rig
+    frames; ``step_ms`` is phase 5's.  Returns its report."""
+    from vbr_tpu_torch.models.visual_hull import (
+        _decode_surface_wire, _encode_surface_wire, _start_download, _wait)
+    from vbr_tpu_torch.ops import marching_cubes as mc
+    from vbr_tpu_torch.ops.texturing import TexturingTables
+
+    grid, cap = model.grid, SURFACE_CAPACITY
+    origin, spacing = model._world_frame()
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
+
+    def k1_k2_launches():
+        return {k.source.stem: k.launches for k in kernels[:2]}
+
+    def raw_surface(m, fr, pair=SURFACE_PAIR):
+        """The surface step's device outputs → (verts, valid, n_active,
+        overflow)."""
+        occ_s, _, ovf = m._step(m._frames(fr))
+        return (*mc.surface_program(occ_s.reshape(m.grid.shape),
+                                    algorithm=pair[0], ambiguity=pair[1],
+                                    capacity=cap), ovf)
+
+    def wire_of(m, fr):
+        """The surface step's one-buffer wire."""
+        occ_s, _, ovf = m._step(m._frames(fr))
+        return _encode_surface_wire(occ_s, ovf, m.grid.shape, cap)
+
+    def cpu_surface(occ_cpu, pair):
+        """The CPU side on occupancy carved on the CPU: ``surface_program``,
+        or where that reports more than the capacity, the host redo's
+        ``extract_mesh`` → (world triangles, n_reported)."""
+        verts, valid, n = mc.surface_program(
+            occ_cpu.reshape(grid.shape), algorithm=pair[0],
+            ambiguity=pair[1], capacity=cap)
+        if int(n) > cap:
+            return mc.extract_mesh(occ_cpu.reshape(grid.shape), origin,
+                                   spacing, algorithm=pair[0],
+                                   ambiguity=pair[1])[0], int(n)
+        return mc.world_triangles(verts, valid, origin, spacing), int(n)
+
+    def hold(m, fr, occ_want, col_want, what, pair=SURFACE_PAIR):
+        reset_counts()
+        tris, occ, col = m.process_frame_surface(fr, *pair, capacity=cap)
+        sync(torch, dev)
+        launches = k1_k2_launches()
+        raw = raw_surface(m, fr, pair)
+        n_dev, ccl_redo = int(raw[2]), bool(raw[3].any())
+        redo = ccl_redo or n_dev > cap
+        want, n_rep = cpu_surface(occ_want, pair)
+        act = mc.active_cells_mask(occ_want.reshape(grid.shape)).reshape(-1)
+        pad = (-act.numel()) % mc._COMPACT_BLOCK
+        blocks = int(torch.cat([act, act.new_zeros(pad)]).reshape(
+            -1, mc._COMPACT_BLOCK).any(1).sum())
+        # a frame redone for a component-table overflow takes its colours
+        # from the table path, which also colours voxels off the hull
+        on = occ_want if ccl_redo else slice(None)
+        expect(np.array_equal(tris, want) and len(tris) > 0
+               and torch.equal(occ.cpu(), occ_want)
+               and torch.equal(col.cpu()[on], col_want[on]) and n_dev == n_rep
+               and (dev.type == "cpu" or min(launches.values()) >= 1),
+               f"process_frame_surface{pair} on {what}: triangles, "
+               f"occupancy and colours bit-equal on {dev.type} and on the "
+               f"CPU; n_active {int(act.sum())} in {blocks} blocks of "
+               f"{mc._COMPACT_BLOCK} cells (reported {n_dev}), triangles "
+               f"{len(tris)}, redo {redo}; launches {launches}")
+        return {"tris": tris, "occ": occ, "n_active": int(act.sum()),
+                "blocks": blocks, "n_reported": n_dev, "redo": redo,
+                "triangles": len(tris)}
+
+    # the two inputs, card against CPU
+    held = {"synthetic": hold(model, frame0, occ_c, col_c,
+                              "the synthetic frame")}
+    rig_cpu = {}
+    for k in SURFACE_RIG_FRAMES:
+        fr = rig.frames[k]
+        t0 = time.perf_counter()
+        rig_cpu[k] = rig.model_cpu.process_frame_fast(fr)
+        held[f"rig {k}"] = hold(
+            rig.model, fr, *rig_cpu[k],
+            f"rig frame {k} (CPU carve {time.perf_counter() - t0:.1f} s)")
+    k0 = SURFACE_RIG_FRAMES[0]
+    rig0, fr0 = held[f"rig {k0}"], rig.frames[k0]
+
+    # times: the step on both inputs, then on the rig frame the program
+    # alone, the download and the placement
+    def step_on(m, fr, surface=True):
+        def step():
+            (m.process_frame_surface if surface else m.process_frame_fast)(fr)
+            sync(torch, dev)
+        return step
+
+    surf_ms = {"synthetic": timed_ms(step_on(model, frame0), torch, dev,
+                                     reps=10),
+               "rig": timed_ms(step_on(rig.model, fr0), torch, dev, reps=10)}
+    fast_rig_ms = timed_ms(step_on(rig.model, fr0, surface=False), torch,
+                           dev, reps=10)
+    print(f"  process_frame_surface {surf_ms['synthetic']:.3f} ms/frame on "
+          f"the synthetic frame (redo {held['synthetic']['redo']}), "
+          f"{surf_ms['rig']:.3f} on rig frame {k0} (redo {rig0['redo']}), "
+          f"medians of 10; process_frame_fast {step_ms:.3f} and "
+          f"{fast_rig_ms:.3f}")
+    vol_d = rig0["occ"].reshape(grid.shape)
+    T = mc._mc_maxt(SURFACE_PAIR[1])
+
+    def program():
+        return mc.surface_program(vol_d, algorithm=SURFACE_PAIR[0],
+                                  ambiguity=SURFACE_PAIR[1], capacity=cap)
+
+    sp_ms = timed_ms(program, torch, dev, flush=flush,
+                     spin_cycles=SURFACE_SPIN_CYCLES)
+    n_cells = int(np.prod([n - 1 for n in grid.shape]))
+    # the volume read once; triangles, their flags and the count written
+    # once; per cell 8 shifted adds and the two active tests
+    sp_bytes = grid.num_voxels + cap * T * (9 * 4 + 1) + 4
+    sp_bound, sp_bound_by = bound(sp_bytes, n_cells * 18)
+    print(f"  surface_program {sp_ms:.4f} ms (device), bound "
+          f"{sp_bound:.5f} ms ({sp_bound_by}: {sp_bytes} B)")
+    out = raw_surface(rig.model, fr0)
+    sync(torch, dev)
+    dl, place = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        host, ready = _start_download(out)
+        _wait(ready)
+        t1 = time.perf_counter()
+        mc.world_triangles(host[0], host[1], origin, spacing)
+        place.append((time.perf_counter() - t1) * 1e3)
+        dl.append((t1 - t0) * 1e3)
+    dl_bytes = sum(t.numel() * t.element_size() for t in out)
+    dl_ms, place_ms = float(np.median(dl)), float(np.median(place))
+    print(f"  download of {dl_bytes} B into pinned memory {dl_ms:.3f} ms, "
+          f"world_triangles on the host {place_ms:.3f} ms (medians of 10)")
+    profiles = {}
+    if dev.type == "cuda":
+        def program_sync():
+            program()
+            sync(torch, dev)
+        sp_host_ms = timed_ms(program_sync, torch, dev, reps=10)
+        profiles["surface_program"] = profile_step(
+            torch, program_sync, sp_host_ms,
+            f"  profile of 4 surface programs ({sp_host_ms:.3f} ms each to "
+            "a synchronised result):", top=8)
+        profiles["fast"] = profile_step(
+            torch, step_on(rig.model, fr0, surface=False), fast_rig_ms,
+            f"  profile of 4 process_frame_fast steps on rig frame {k0}:",
+            top=5)
+        profiles["surface"] = profile_step(
+            torch, step_on(rig.model, fr0), surf_ms["rig"],
+            f"  profile of 4 process_frame_surface steps on rig frame {k0}:")
+        if profiles["fast"] and profiles["surface"]:
+            a, b = profiles["fast"], profiles["surface"]
+            print(f"  the surface adds {b['device_ops_per_frame'] - a['device_ops_per_frame']:.0f}"
+                  f" device ops and {b['device_busy_ms_per_frame'] - a['device_busy_ms_per_frame']:.3f}"
+                  " device ms per frame")
+
+    # the wire's numpy tail on the rig frame
+    wire, ready = _start_download((wire_of(rig.model, fr0),))
+    _wait(ready)
+    _, n_w, idx_w, cfg_w, _ = _decode_surface_wire(wire[0], cap,
+                                                   grid.num_voxels)
+    tail = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tris_w = mc.triangles_from_wire(idx_w, cfg_w, n_w, grid.shape,
+                                        origin, spacing)
+        tail.append((time.perf_counter() - t0) * 1e3)
+    wire_tail_ms = float(np.median(tail))
+    expect(np.array_equal(tris_w, rig0["tris"]),
+           f"the wire's numpy tail gives rig frame {k0}'s triangles in "
+           f"{wire_tail_ms:.3f} ms (median of 10; wire of "
+           f"{wire[0].numel()} B)")
+
+    # stream_surface over the stream's frames and over the rig's, both
+    # transfers, each frame equal to process_frame_surface
+    stream = {}
+    for name, m, frames in (("stream", model, seq),
+                            ("rig", rig.model, list(rig.frames))):
+        refs = [m.process_frame_surface(fr) for fr in frames]
+        redone = 0  # frames over the capacity or a component table
+        for fr in frames:
+            any_ovf, n_rep = wire_of(m, fr)[:8].view(torch.int32).tolist()
+            redone += bool(any_ovf) or n_rep > cap
+        for transfer in ("full", "wire"):
+            list(m.stream_surface(iter(frames[:2]), transfer=transfer))
+            sync(torch, dev)
+            reset_counts()
+            stamps, outs = [time.perf_counter()], []
+            for o in m.stream_surface(iter(frames), transfer=transfer):
+                outs.append(o)
+                stamps.append(time.perf_counter())
+            sync(torch, dev)
+            launches = k1_k2_launches()
+            for f, ((tris, occ), (t_ref, o_ref, _)) in enumerate(
+                    zip(outs, refs)):
+                if isinstance(occ, torch.Tensor):
+                    occ = occ.cpu().numpy()
+                if not (np.array_equal(tris, t_ref)
+                        and np.array_equal(occ, o_ref.cpu().numpy())):
+                    raise Failed(f"stream_surface(transfer={transfer!r}) on "
+                                 f"the {name}'s frame {f} differs from "
+                                 "process_frame_surface")
+            ms = (stamps[-1] - stamps[0]) * 1e3 / len(frames)
+            expect(len(outs) == len(frames) and (dev.type == "cpu" or min(
+                launches.values()) >= len(frames)),
+                   f"stream_surface(transfer={transfer!r}) on the {name}'s "
+                   f"{len(frames)} frames equal to process_frame_surface; "
+                   f"{ms:.3f} ms/frame (mean), {redone} frames redone "
+                   f"on the host; launches {launches}")
+            stream[f"{name} {transfer}"] = {
+                "ms_per_frame": ms, "frames": len(frames),
+                "redone": redone,
+                "per_frame_ms": (np.diff(stamps) * 1e3).tolist(),
+                "launches": launches}
+
+    # held, not timed, on the rig frame (the device path)
+    occ_r0, col_r0 = rig_cpu[k0]
+    for pair in (("tetrahedra", "separate"), ("cubes", "separate")):
+        hold(rig.model, fr0, occ_r0, col_r0, f"rig frame {k0}", pair)
+    redo_cap = min(1024, rig0["n_active"] - 1)
+    tris_r, occ_r, col_r = rig.model.process_frame_surface(
+        fr0, capacity=redo_cap)
+    expect(rig0["n_active"] > redo_cap and np.array_equal(tris_r, rig0["tris"])
+           and torch.equal(occ_r.cpu(), occ_r0)
+           and torch.equal(col_r.cpu(), col_r0),
+           f"extract_mesh on the step's occupancy gives the same triangles, "
+           f"occupancy and colours at capacity {redo_cap} < "
+           f"{rig0['n_active']} active cells")
+    tris_e, n_e = rig.model.extract_surface(fr0)
+    expect(n_e == rig0["triangles"] and np.array_equal(tris_e, rig0["tris"]),
+           "extract_surface equals process_frame_surface")
+    cubes = three_cubes()
+    got = mc.surface_program(torch.from_numpy(cubes).to(dev), capacity=128,
+                             block_capacity=2)
+    want = mc.surface_program(torch.from_numpy(cubes), capacity=128,
+                              block_capacity=2)
+    n_true = int(mc.active_cells_mask(torch.from_numpy(cubes)).sum())
+    expect(all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+           and int(got[2]) > 128 >= n_true,
+           f"surface_program(block_capacity=2) on three separated cubes: "
+           f"n_reported {int(got[2])} > capacity 128 ({n_true} active "
+           f"cells), raw outputs equal on {dev.type} and on the CPU")
+    masks0 = model.masks(frame0)
+    t0 = time.perf_counter()
+    tex = model.textured_frame(frame0, masks0)
+    sync(torch, dev)
+    tex_s = time.perf_counter() - t0
+    t = model._tex_tables  # the f64 host build, once
+    model_cpu._tex_tables = TexturingTables(t.valid.cpu(), t.lin_idx.cpu(),
+                                            t.depth.cpu(), t.image_hw)
+    tex_c = model_cpu.textured_frame(frame0, masks0.cpu())
+    used = sorted(set(tex[2].cpu().numpy()[occ_c.numpy()].tolist()))
+    expect(all(torch.equal(a.cpu(), b) for a, b in zip(tex, tex_c)),
+           f"textured_frame: occupancy, colours and cam_choice equal on "
+           f"{dev.type} and on the CPU; cameras chosen {used}; first call "
+           f"(tables included) {tex_s:.2f} s")
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            program()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync(torch, dev)
+        print("  ok: surface_program queued with no host synchronisation "
+              "(torch.cuda.set_sync_debug_mode('error'))")
+    return {"capacity": cap, "pair": list(SURFACE_PAIR),
+            "held": {k: {n: v[n] for n in ("n_active", "blocks",
+                                           "n_reported", "redo",
+                                           "triangles")}
+                     for k, v in held.items()},
+            "process_frame_surface_ms": surf_ms,
+            "process_frame_fast_ms": {"synthetic": step_ms,
+                                      "rig": fast_rig_ms},
+            "surface_program": {"ms": sp_ms, "bound_ms": sp_bound,
+                                "bound_by": sp_bound_by, "bytes": sp_bytes},
+            "download": {"bytes": dl_bytes, "ms": dl_ms},
+            "world_triangles_ms": place_ms,
+            "wire_tail_ms": wire_tail_ms,
+            "stream_surface": stream,
+            "profiles": profiles}
 
 
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
@@ -1606,13 +1941,21 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     # -- [14] the viewer seam on the rig ----------------------------------
     print(f"[14] the viewer seam on the rig: set_voxel_positions"
           f"{tuple(seam_sizes[0])} over {RIG_FRAMES} frames", flush=True)
-    seam = seam_phase(torch, dev, kernels, r, mask_params, image_hw,
-                      seam_sizes)
+    rig_models, seam = seam_phase(torch, dev, kernels, r, mask_params,
+                                  image_hw, seam_sizes)
 
     # -- [15] K1 and K4 at any camera count -------------------------------
     print("[15] K1 and K4 at camera counts other than the rig's", flush=True)
     worst = hold_camera_counts(torch, dev, cb)
     k1_err, k4_err = max(k1_err, worst["K1"]), max(k4_err, worst["K4"])
+
+    # -- [16] the surface path --------------------------------------------
+    print(f"[16] the surface path: process_frame_surface{SURFACE_PAIR}, "
+          f"capacity {SURFACE_CAPACITY}", flush=True)
+    t0 = time.perf_counter()
+    surface = surface_phase(torch, dev, kernels, flush, model, model_cpu,
+                            frame0, occ_c, col_c, seq, rig_models, step_ms)
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
 
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
@@ -1660,6 +2003,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                     "frames_per_launch": OFFLINE_NF,
                     "launches": off_launches, "profile": offline_profile},
         "seam": seam,
+        "surface": surface,
     }
 
 

@@ -125,6 +125,31 @@ def test_phases_run_on_cpu_small_rig(capsys):
         assert f"ok: K1 with {C} cameras: occupancy and colours" in out
     for C in (55, 56, 57, 64, 255, 300):
         assert f"ok: K4 with {C} cameras, 8 frames: occupancy" in out
+    # phase 16: the surface path on both inputs, both transfers, the rest
+    surface = report["surface"]
+    assert surface["capacity"] == 32768
+    assert set(surface["held"]) == {"synthetic", "rig 0", "rig 4"}
+    assert all(h["n_active"] > 0 and not h["redo"]
+               for h in surface["held"].values())
+    assert set(surface["stream_surface"]) == {
+        "stream full", "stream wire", "rig full", "rig wire"}
+    for what in ("process_frame_surface('cubes', 'join') on the synthetic "
+                 "frame: triangles, occupancy and colours bit-equal",
+                 "process_frame_surface('cubes', 'join') on rig frame 4",
+                 "process_frame_surface('tetrahedra', 'separate') on rig "
+                 "frame 0", "process_frame_surface('cubes', 'separate') on "
+                 "rig frame 0",
+                 "stream_surface(transfer='full') on the stream's 16 frames",
+                 "stream_surface(transfer='wire') on the stream's 16 frames",
+                 "stream_surface(transfer='full') on the rig's 8 frames",
+                 "stream_surface(transfer='wire') on the rig's 8 frames",
+                 "the wire's numpy tail gives rig frame 0's triangles",
+                 "extract_mesh on the step's occupancy gives the same "
+                 "triangles, occupancy and colours",
+                 "surface_program(block_capacity=2) on three separated cubes",
+                 "extract_surface equals process_frame_surface",
+                 "textured_frame: occupancy, colours and cam_choice equal"):
+        assert f"ok: {what}" in out
 
 
 def test_crossing_sweeps_meet_inside_every_band():

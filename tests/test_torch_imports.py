@@ -19,7 +19,9 @@ MODULES = [
     "vbr_tpu_torch.ops.ccl_label",
     "vbr_tpu_torch.ops.color",
     "vbr_tpu_torch.ops.gmm",
+    "vbr_tpu_torch.ops.marching_cubes",
     "vbr_tpu_torch.ops.morphology",
+    "vbr_tpu_torch.ops.texturing",
     "vbr_tpu_torch.pipelines.background",
     "vbr_tpu_torch.pipelines.reconstruction",
     "vbr_tpu_torch.utils.artifacts",

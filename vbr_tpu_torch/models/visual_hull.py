@@ -22,10 +22,24 @@ torch tensors on the model's device.
 ``process_frames_offline`` runs the mask stages over every (frame, camera)
 image of a chunk and carves the chunk in one launch of kernel K4
 (``_full_step_frames``); it returns host arrays.
+
+The surface entry points turn the carved hull into a triangle mesh (the
+live counterpart of the reference's offline
+``skimage.measure.marching_cubes`` call, voxel_reconstruction.py:142):
+``process_frame_surface`` and ``stream_surface`` run the step that
+``process_frame_fast`` runs with ``ops.marching_cubes.surface_program``
+behind it (or ``_encode_surface_wire`` for ``transfer="wire"``), so the
+mesh comes out of the same queue of device work that carved the hull; the
+host only places the triangles in the world (two f32 roundings), meshes a
+surface over the ``capacity`` with ``extract_mesh`` and redoes a frame
+that overflows a component table.
+``extract_surface``, ``textured_frame`` and ``viewer_arrays`` run on the
+plain table path.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import List, Optional, Sequence
 
@@ -33,7 +47,8 @@ import numpy as np
 import torch
 
 from vbr_tpu_torch.ops import carve as carve_ops
-from vbr_tpu_torch.ops import carve_blocked, ccl
+from vbr_tpu_torch.ops import carve_blocked, ccl, texturing
+from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops.gmm import MOGState
 from vbr_tpu_torch.pipelines import background, reconstruction
 from vbr_tpu_torch.utils import artifacts
@@ -75,6 +90,7 @@ class VisualHull:
         # the grid cannot be blocked
         self._btab = _UNBUILT
         self._stacked_fz = None
+        self._tex_tables = None  # texturing tables, built on first use
 
     @property
     def image_hw(self):
@@ -221,8 +237,7 @@ class VisualHull:
     def process_frame(self, frames, masks=None):
         """Plain table-path step → (occupancy (N,) bool, colors (N, 3) u8)."""
         frames_d = self._frames(frames)
-        if masks is None:
-            masks = self.masks(frames_d)
+        masks = self.masks(frames_d) if masks is None else self._frames(masks)
         return carve_ops.carve_from_tables(
             masks, frames_d, self.tables.valid, self.tables.lin_idx,
             views_threshold=self.rig.views_threshold,
@@ -257,31 +272,44 @@ class VisualHull:
         canonical order whatever ``layout``; ``"auto"`` takes the blocked
         carve where the grid has blocked tables and the table step where it
         has not (dims not divisible by 8·sup)."""
+        carve_kernel = self._carve_kernel(carve_kernel)
+        frames_d = self._frames(frames)
+        occ, col, ovf = self._step(frames_d, carve_kernel, layout)
+        if bool(ovf.any()):  # exact redo through the host cleanup
+            if carve_kernel == "tables":
+                return self.process_frame(frames_d)
+            return self._redo(frames_d, layout)
+        return occ, col
+
+    def _carve_kernel(self, carve_kernel):
+        """``carve_kernel`` of :meth:`process_frame_fast` with ``"auto"``
+        resolved (the fast state built on the way)."""
         self._ensure_fast_state()
         if carve_kernel == "auto":
             carve_kernel = ("tables" if self._ensure_btab() is None
                             else "blocked")
         if carve_kernel not in ("blocked", "tables"):
             raise ValueError(f"unknown carve_kernel {carve_kernel!r}")
-        frames_d = self._frames(frames)
-        if carve_kernel == "tables":
-            occ, col, ovf = _full_step_tables(
-                self._stacked_fz, frames_d, self.tables,
-                mask_params=self.mask_params,
-                use_hsv=self.mog_params[0].use_hsv,
-                fig_thresholds=self._fig_thresholds,
-                inner_thresholds=self._inner_thresholds,
-                views_threshold=self.rig.views_threshold,
-                color_camera=self.rig.color_camera,
-            )
-            if bool(ovf.any()):  # exact redo through the host cleanup
-                return self.process_frame(frames_d)
-            return occ, col
-        self._blocked_tables_for("the blocked carve")
-        occ, col, ovf = self._dispatch(frames_d, layout)
-        if bool(ovf.any()):
-            return self._redo(frames_d, layout)
-        return occ, col
+        if carve_kernel == "blocked":
+            self._blocked_tables_for("the blocked carve")
+        return carve_kernel
+
+    def _step(self, frames_d, carve_kernel="auto", layout="canonical"):
+        """Queue the fused per-frame step → (occ, col, ovf) on the model's
+        device: kernels K2 and K1 on the blocked tables (their plain
+        versions on a CPU model), or the table step (``"tables"``, which
+        returns canonical order whatever ``layout``)."""
+        if self._carve_kernel(carve_kernel) == "blocked":
+            return self._dispatch(frames_d, layout)
+        return _full_step_tables(
+            self._stacked_fz, frames_d, self.tables,
+            mask_params=self.mask_params,
+            use_hsv=self.mog_params[0].use_hsv,
+            fig_thresholds=self._fig_thresholds,
+            inner_thresholds=self._inner_thresholds,
+            views_threshold=self.rig.views_threshold,
+            color_camera=self.rig.color_camera,
+        )
 
     def stream(self, frames_iter, layout: str = "blocked"):
         """Streaming reconstruction: frame N+1's step is queued on the
@@ -360,6 +388,174 @@ class VisualHull:
                   for f in range(F)]
         return occ, colors
 
+    # -- surface ------------------------------------------------------------
+
+    def _world_frame(self):
+        """(origin, spacing) of the voxel grid in world mm (floats)."""
+        xs, ys, zs = self.grid.axis_ranges()
+        return (
+            (float(xs[0]), float(ys[0]), float(zs[0])),
+            (float(xs[1] - xs[0]), float(ys[1] - ys[0]),
+             float(zs[1] - zs[0])),
+        )
+
+    def _surface_redo(self, frames_d, occ, col, ccl_overflow, algorithm,
+                      ambiguity):
+        """Exact fallback of the surface step (rare) → (tris, occ, col).  A
+        component-table overflow redoes the frame on the plain table path; a
+        surface over the ``capacity`` (or the block limit) keeps the step's
+        occupancy, which is exact, and meshes it with ``extract_mesh`` (the
+        config grid on its device, the emission on the host)."""
+        if ccl_overflow:
+            occ, col = self.process_frame(frames_d)
+        origin, spacing = self._world_frame()
+        tris, _ = mc.extract_mesh(occ.reshape(self.grid.shape), origin=origin,
+                                  spacing=spacing, algorithm=algorithm,
+                                  ambiguity=ambiguity)
+        return tris, occ, col
+
+    def process_frame_surface(self, frames, algorithm: str = "cubes",
+                              ambiguity: str = "join",
+                              capacity: int = 32768):
+        """Frame → triangle mesh: the fused per-frame step of
+        :meth:`process_frame_fast` (kernels K2 and K1 where the grid has
+        blocked tables) and the device-resident surface extraction
+        (``ops.marching_cubes.surface_program``) queued as one piece of
+        device work, with no host round trip between carving and meshing.
+
+        Returns ``(tris (T, 3, 3) f32 world mm numpy, occ, col)``, ``tris``
+        bit-identical to :meth:`extract_surface` on the same frame.  A frame
+        that overflows a device component table is redone on the plain
+        table path; one with more than ``capacity`` active surface cells is
+        meshed by ``extract_mesh`` from the same occupancy.
+        ``("cubes", "join")`` is what skimage's Lewiner MC33 resolves on a
+        binary volume (the reference's call, voxel_reconstruction.py:142);
+        ``algorithm="tetrahedra"`` takes the 6-tet decomposition.
+        """
+        mc.table_emitter(algorithm, ambiguity, 0.5)  # validates the rule
+        frames_d = self._frames(frames)
+        occ, col, ovf = self._step(frames_d)
+        verts, valid, n_active = mc.surface_program(
+            occ.reshape(self.grid.shape), algorithm=algorithm,
+            ambiguity=ambiguity, capacity=capacity)
+        (verts, valid, n_active, ovf), ready = _start_download(
+            (verts, valid, n_active, ovf))
+        _wait(ready)
+        if bool(ovf.any()) or int(n_active) > capacity:
+            return self._surface_redo(frames_d, occ, col, bool(ovf.any()),
+                                      algorithm, ambiguity)
+        origin, spacing = self._world_frame()
+        return mc.world_triangles(verts, valid, origin, spacing), occ, col
+
+    def stream_surface(self, frames_iter, depth: int = 2,
+                       algorithm: str = "cubes", ambiguity: str = "join",
+                       capacity: int = 32768, transfer: str = "full",
+                       ingest: str = "bgr"):
+        """Streaming surface reconstruction: frames in, meshes out.
+
+        Each frame's step (that of :meth:`process_frame_surface`) is queued
+        with ``depth`` frames in flight, and its results are copied into
+        pinned host memory as soon as they are queued; a frame's overflow
+        bits and active-cell count are read only when it leaves the queue.
+        Yields ``(tris (T, 3, 3) f32 world mm, occ)`` per frame, equal to
+        :meth:`process_frame_surface`, with its fallbacks.
+
+        ``transfer="wire"`` downloads only the active cells' ids and
+        configs and the bit-packed occupancy (``_encode_surface_wire``,
+        ~0.43 MB at 128³ and the default capacity) instead of the emitted
+        triangles (~7.1 MB), and the host emits the same triangles from the
+        generated table; ``occ`` is then a numpy array.  ``ingest`` takes
+        ``"bgr"`` frames; the reduced-byte formats are not ported yet.
+        """
+        if transfer not in ("full", "wire"):
+            raise ValueError(f"unknown transfer mode {transfer!r}")
+        if ingest in ("yuv420", "yuv420_roi"):
+            raise NotImplementedError(
+                f"ingest={ingest!r}: the reduced-byte ingest formats are "
+                "not ported yet (ROADMAP.md, Queue 1 item 4); pass "
+                "ingest='bgr'")
+        if ingest != "bgr":
+            raise ValueError(f"unknown ingest format {ingest!r}")
+        mc.table_emitter(algorithm, ambiguity, 0.5)  # validates the rule
+        origin, spacing = self._world_frame()
+        q = collections.deque()
+
+        def dispatch(frames):
+            frames_d = self._frames(frames)
+            occ, col, ovf = self._step(frames_d)
+            if transfer == "wire":
+                out = (_encode_surface_wire(occ, ovf, self.grid.shape,
+                                            capacity),)
+            else:
+                out = (*mc.surface_program(
+                    occ.reshape(self.grid.shape), algorithm=algorithm,
+                    ambiguity=ambiguity, capacity=capacity), ovf)
+            host, ready = _start_download(out)
+            return host, ready, frames_d, occ, col
+
+        def resolve(entry):
+            host, ready, frames_d, occ, col = entry
+            _wait(ready)
+            if transfer == "wire":
+                any_ovf, n_active, idx, cfg, occ_h = _decode_surface_wire(
+                    host[0], capacity, self.grid.num_voxels)
+            else:
+                verts, valid, n_active, ovf = host
+                any_ovf, n_active = bool(ovf.any()), int(n_active)
+            if any_ovf or n_active > capacity:
+                tris, occ, _ = self._surface_redo(
+                    frames_d, occ, col, bool(any_ovf), algorithm, ambiguity)
+                return tris, (carve_ops.to_host(occ) if transfer == "wire"
+                              else occ)
+            if transfer == "wire":
+                return mc.triangles_from_wire(
+                    idx, cfg, n_active, self.grid.shape, origin, spacing,
+                    algorithm=algorithm, ambiguity=ambiguity), occ_h
+            return mc.world_triangles(verts, valid, origin, spacing), occ
+
+        for frames in frames_iter:
+            q.append(dispatch(frames))
+            if len(q) > depth:
+                yield resolve(q.popleft())
+        while q:
+            yield resolve(q.popleft())
+
+    def extract_surface(self, frames, masks=None, algorithm: str = "cubes",
+                        ambiguity: str = "join"):
+        """Isosurface mesh of the plain table path's hull, in world mm:
+        (tris (T, 3, 3) f32 numpy, T).  The default ``("cubes", "join")``
+        is shared by every surface entry point."""
+        occ, _ = self.process_frame(frames, masks)
+        origin, spacing = self._world_frame()
+        return mc.extract_mesh(occ.reshape(self.grid.shape), origin=origin,
+                               spacing=spacing, algorithm=algorithm,
+                               ambiguity=ambiguity)
+
+    def textured_frame(self, frames, masks=None):
+        """Carve (plain table path) + per-voxel colour from the nearest
+        non-occluded camera, in place of the reference's colour camera
+        for every voxel (assignment.py:133).
+
+        Returns (occupancy (N,) bool, colors (N, 3) u8, cam_choice (N,)
+        i8) on the model's device."""
+        if self._tex_tables is None:
+            self._tex_tables = texturing.build_texturing_tables(
+                self.cameras, self.grid, self.image_hw, self.device)
+        frames_d = self._frames(frames)
+        occ, _ = self.process_frame(frames_d, masks)
+        t = self._tex_tables
+        colors, cam_choice = texturing.textured_colors(
+            occ, frames_d, t.valid, t.lin_idx, t.depth,
+            image_hw=self.image_hw)
+        return occ, colors, cam_choice
+
+    def viewer_arrays(self, frames, masks=None):
+        """(positions, colors) numpy in viewer coordinates (the reference
+        seam's contract) from the plain table path."""
+        occ, col = self.process_frame(frames, masks)
+        return carve_ops.compact_voxels(occ, col, self.grid,
+                                        self.rig.scaling_factor)
+
     # -- checkpointing ----------------------------------------------------
 
     def save_background_models(self, out_dir: str):
@@ -436,3 +632,59 @@ def _full_step_frames(stacked_fz, frames, btab, *, mask_params, use_hsv,
     occ = carve_blocked._carve_frames_device(
         masks, btab, views_threshold=views_threshold)
     return occ, ovf.reshape(NF, C)
+
+
+def _encode_surface_wire(occ, ovf, grid_shape, capacity):
+    """One u8 buffer ``[any_ovf i32][n_active i32][idx i32·cap][cfg u8·cap]
+    [occ bits]`` (integers little-endian, occupancy bits little-endian
+    within each byte, as ``np.packbits(..., bitorder="little")``), so one
+    download carries a frame."""
+    idx, cfg, n_active = mc.surface_wire_program(occ.reshape(grid_shape),
+                                                 capacity=capacity)
+    bits = occ.reshape(-1).to(torch.uint8)
+    pad = (-bits.numel()) % 8
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(pad)])
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    occ_packed = (bits.reshape(-1, 8) << shifts).sum(1, dtype=torch.uint8)
+    head = torch.stack([ovf.any().to(torch.int32),
+                        n_active.to(torch.int32)]).view(torch.uint8)
+    return torch.cat([head, idx.to(torch.int32).view(torch.uint8), cfg,
+                      occ_packed])
+
+
+def _decode_surface_wire(wire_host, capacity, num_voxels):
+    """Host inverse of :func:`_encode_surface_wire` → (any_ovf, n_active,
+    idx (cap,) i32, cfg (cap,) u8, occ (N,) bool) numpy."""
+    buf = carve_ops.to_host(wire_host)
+    any_ovf, n_active = np.frombuffer(buf[:8].tobytes(), np.int32)
+    o = 8
+    idx = np.frombuffer(buf[o:o + 4 * capacity].tobytes(), np.int32)
+    o += 4 * capacity
+    cfg = buf[o:o + capacity]
+    o += capacity
+    occ = np.unpackbits(buf[o:], bitorder="little",
+                        count=num_voxels).astype(bool)
+    return int(any_ovf), int(n_active), idx, cfg, occ
+
+
+def _start_download(tensors):
+    """Queue copies of device tensors into pinned host memory → (host
+    tensors, CUDA event recorded after the copies); CPU tensors pass
+    through with no event."""
+    if tensors[0].device.type != "cuda":
+        return tuple(tensors), None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    ready = torch.cuda.Event()
+    ready.record()
+    return tuple(host), ready
+
+
+def _wait(ready):
+    """Block until the downloads of :func:`_start_download` have landed."""
+    if ready is not None:
+        ready.synchronize()
