@@ -92,8 +92,8 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      table path), triangles, whether either happened; ms per frame on both inputs beside ``process_frame_fast``;
      on the rig frame ``surface_program`` alone (device ms, bound, a
      profile), the triangle download and the host placement apart, the
-     wire's numpy tail, and profiles of both steps; ``stream_surface``
-     over phase 6's 16 frames and over the rig's 8 with
+     wire's host tail (``native.mc_emit``), and profiles of both steps;
+     ``stream_surface`` over phase 6's 16 frames and over the rig's 8 with
      ``transfer="full"`` and ``"wire"``, each frame equal to
      ``process_frame_surface``, ms per frame; then, not timed, on the rig
      frame: ``("tetrahedra", "separate")`` and ``("cubes", "separate")``,
@@ -103,6 +103,24 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      separated cubes through ``surface_program(block_capacity=2)``
      (forced over capacity, equal to the CPU); ``textured_frame`` card vs
      CPU; ``surface_program`` queued under
+     ``torch.cuda.set_sync_debug_mode("error")``;
+ 17. the thin-link viewer stream on phase 14's rig:
+     ``VisualHull.stream_viewer`` over its 8 frames with ``ingest="bgr"``,
+     ``"yuv420"`` and ``"yuv420_roi"`` (window 320x224), every frame's
+     (positions, rgb) bit-equal to the CPU's, for ``"bgr"`` also to
+     ``compact_voxels_blocked`` of ``process_frame_fast(layout="blocked")``
+     (the wire is lossless); ms/frame, K1 and K2 launches, the upload bytes
+     of each mode, the frames the tracker sends to full-frame ``yuv420``
+     and the wire's bytes; ``validate_reduced_ingest`` (``"yuv420"``,
+     ``"yuv420_roi"``) on a rig frame, equal on the card and the CPU; one
+     frame's wire byte-equal; a wire capacity below the frame's occupied
+     sub-blocks and phase 7's component overflow, both redone exactly
+     (equal to the CPU); ``stream_surface`` with both reduced uploads under
+     both transfers, each frame equal to the CPU; on the host
+     ``native.yuv420_pack`` byte-equal to the numpy pack and
+     ``native.mc_emit`` bit-equal to the numpy emission, with the ms of
+     each beside numpy's and the tracker's; and a viewer frame of each
+     ingest queued up to its download under
      ``torch.cuda.set_sync_debug_mode("error")``.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
@@ -1168,8 +1186,11 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
     synthetic rig) and ``rig.model`` (phase 14's rig), against the CPU
     occupancies ``occ_c``/``col_c`` of ``frame0`` and those of the rig
     frames; ``step_ms`` is phase 5's.  Returns its report."""
+    from scipy import ndimage
+
     from vbr_tpu_torch.models.visual_hull import (
-        _decode_surface_wire, _encode_surface_wire, _start_download, _wait)
+        _decode_surface_wire, _encode_surface_wire, _ingest, _start_download,
+        _wait)
     from vbr_tpu_torch.ops import marching_cubes as mc
     from vbr_tpu_torch.ops.texturing import TexturingTables
 
@@ -1324,7 +1345,7 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
                   f" device ops and {b['device_busy_ms_per_frame'] - a['device_busy_ms_per_frame']:.3f}"
                   " device ms per frame")
 
-    # the wire's numpy tail on the rig frame
+    # the wire's host tail (the native emission) on the rig frame
     wire, ready = _start_download((wire_of(rig.model, fr0),))
     _wait(ready)
     _, n_w, idx_w, cfg_w, _ = _decode_surface_wire(wire[0], cap,
@@ -1337,7 +1358,7 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
         tail.append((time.perf_counter() - t0) * 1e3)
     wire_tail_ms = float(np.median(tail))
     expect(np.array_equal(tris_w, rig0["tris"]),
-           f"the wire's numpy tail gives rig frame {k0}'s triangles in "
+           f"the wire's host tail gives rig frame {k0}'s triangles in "
            f"{wire_tail_ms:.3f} ms (median of 10; wire of "
            f"{wire[0].numel()} B)")
 
@@ -1450,10 +1471,321 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
             "profiles": profiles}
 
 
+ROI_HW = (320, 224)  # ``stream_viewer``'s default window
+INGESTS = ("bgr", "yuv420", "yuv420_roi")
+VIEWER_DEPTH = 3  # ``stream_viewer``'s default frames in flight
+
+
+def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
+                 roi_hw):
+    """Phase 17: the thin-link viewer stream (see the docstring) on the rig
+    of phase 14 (``rig``), phase 7's overflow frame ``fo`` on the synthetic
+    model; returns its report."""
+    from vbr_tpu_torch import native
+    from scipy import ndimage
+
+    from vbr_tpu_torch.models.visual_hull import (
+        _decode_surface_wire, _encode_surface_wire, _ingest, _start_download,
+        _wait)
+    from vbr_tpu_torch.ops import carve_blocked as cb
+    from vbr_tpu_torch.ops import color as color_ops
+    from vbr_tpu_torch.ops import marching_cubes as mc
+
+    m, mc_cpu, frames = rig.model, rig.model_cpu, list(rig.frames)
+    nvox = m.grid.num_voxels
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
+
+    def k1_k2_launches():
+        return {k.source.stem: k.launches for k in kernels[:2]}
+
+    def same_arrays(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def host_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), out
+
+    # the modes a tracker gives these frames, and what each uploads
+    tracker = m._roi_tracker(roi_hw)
+    modes = [m._ingest_prepare("yuv420_roi", tracker, fr)[0] for fr in frames]
+    C, (H, W) = len(m.cameras), m.image_hw
+    upload_bytes = {"bgr": C * H * W * 3, "yuv420": C * H * 3 // 2 * W,
+                    "yuv420_roi": C * roi_hw[0] * 3 // 2 * roi_hw[1]}
+    roi_upload = float(np.mean([upload_bytes[md] for md in modes]))
+    wire_bytes = int(m._dispatch(m._frames(frames[0]), "packed").numel())
+    print(f"  upload bytes per frame: {upload_bytes}; the tracker sends "
+          f"{modes.count('yuv420')} of {len(frames)} frames to full-frame "
+          f"yuv420 (modes {modes}), so yuv420_roi uploads {roi_upload:.0f} B "
+          f"per frame on these frames; wire {wire_bytes} B per frame")
+
+    # stream_viewer, each ingest: card vs CPU, the launches, ms/frame
+    report = {"roi_hw": list(roi_hw), "upload_bytes": upload_bytes,
+              "roi_upload_bytes_mean": roi_upload, "roi_modes": modes,
+              "wire_bytes": wire_bytes, "stream_viewer": {}}
+    blocked = [m.process_frame_fast(fr, layout="blocked") for fr in frames]
+    lossless = [cb.compact_voxels_blocked(occ, col, m._btab, m.grid,
+                                          m.rig.scaling_factor)
+                for occ, col in blocked]
+    # each frame's wire overflow word, per ingest: the frames a stream
+    # redoes from their BGR frames
+    report["redone"] = {}
+    for ingest in INGESTS:
+        tr = m._roi_tracker(roi_hw)
+        words = []
+        for fr in frames:
+            mode, upload, off = m._ingest_prepare(ingest, tr, fr)
+            words.append(cb.decode_wire(
+                m._dispatch(m._frames(upload), "packed", mode, off),
+                total_voxels=nvox)[0])
+        report["redone"][ingest] = words
+    print(f"  wire overflow word per frame (1: the frame is redone from its "
+          f"BGR frames): {report['redone']}")
+    # why: raw foreground components per camera on rig frame 2 (the device
+    # cleanup's table holds kf = 512 of them, and 128 background ones)
+    comps = {}
+    for ingest in INGESTS:
+        tr = m._roi_tracker(roi_hw)
+        tr.update(frames[1])
+        mode, upload, off = m._ingest_prepare(ingest, tr, frames[2])
+        raw, _ = _ingest(m._stacked_fz, m._frames(upload),
+                         mask_params=m.mask_params, use_hsv=True,
+                         ingest=mode, roi_offsets=off)
+        raw = raw.cpu().numpy() > 0
+        comps[ingest] = [[ndimage.label(ph, structure=np.ones((3, 3)))[1]
+                          for ph in (r, ~r)] for r in raw]
+    print(f"  rig frame 2: [foreground, background] components of the raw "
+          f"masks per camera: {comps}")
+    report["raw_components"] = comps
+    for ingest in INGESTS:
+        list(m.stream_viewer(iter(frames[:2]), ingest=ingest,
+                             roi_hw=roi_hw))  # warm-up
+        sync(torch, dev)
+        reset_counts()
+        stamps, outs = [time.perf_counter()], []
+        for out in m.stream_viewer(iter(frames), ingest=ingest,
+                                   roi_hw=roi_hw):
+            outs.append(out)
+            stamps.append(time.perf_counter())
+        sync(torch, dev)
+        launches = k1_k2_launches()
+        ms = (stamps[-1] - stamps[0]) * 1e3 / len(frames)
+        t0 = time.perf_counter()
+        want = list(mc_cpu.stream_viewer(iter(frames), ingest=ingest,
+                                         roi_hw=roi_hw))
+        cpu_s = time.perf_counter() - t0
+        expect(len(outs) == len(frames)
+               and all(same_arrays(a, b) for a, b in zip(outs, want))
+               and all(len(p) > 0 and p.dtype == np.float32 for p, _ in outs)
+               and (dev.type == "cpu"
+                    or min(launches.values()) >= len(frames)),
+               f"stream_viewer(ingest={ingest!r}) on the rig's {len(frames)} "
+               f"frames: (positions, rgb) bit-equal on {dev.type} and on the "
+               f"CPU (CPU {cpu_s:.1f} s); {ms:.3f} ms/frame (mean); launches "
+               f"{launches}; occupied voxels {[len(p) for p, _ in outs]}")
+        if ingest == "bgr":
+            expect(all(same_arrays(a, b) for a, b in zip(outs, lossless)),
+                   "stream_viewer(ingest='bgr') equals compact_voxels_blocked"
+                   " of process_frame_fast(layout='blocked'): the wire is "
+                   "lossless")
+        report["stream_viewer"][ingest] = {
+            "ms_per_frame": ms,
+            "per_frame_ms": (np.diff(stamps) * 1e3).tolist(),
+            "launches": launches, "occupied": [len(p) for p, _ in outs]}
+
+    # the bgr stream's parts on rig frame 0: the pack on the device, the
+    # download, the host unpack, beside the uncompressed compaction
+    occ_b, col_b = blocked[0]
+    no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def pack():
+        return cb.encode_wire(*cb.pack_blocked_outputs(occ_b, col_b)[:5],
+                              no_ovf)
+
+    pack_ms = timed_ms(pack, torch, dev, flush=flush,
+                       spin_cycles=SURFACE_SPIN_CYCLES)
+    wire0 = pack()
+
+    def download():
+        (h,), ready = _start_download((wire0,))
+        _wait(ready)
+        return h
+
+    dl_ms, wire_h = host_ms(download)
+    unpack_ms, arrays = host_ms(lambda: cb.viewer_arrays_from_packed(
+        *(lambda d: (d[4], d[3], d[1], d[2], d[5]))(
+            cb.decode_wire(wire_h, total_voxels=nvox)),
+        m._btab, m.grid, m.rig.scaling_factor))
+    compact_ms, _ = host_ms(lambda: cb.compact_voxels_blocked(
+        occ_b, col_b, m._btab, m.grid, m.rig.scaling_factor))
+    expect(same_arrays(arrays, lossless[0]),
+           f"the wire's parts on rig frame 0: pack {pack_ms:.4f} ms on "
+           f"{dev.type}, download {dl_ms:.3f} ms, host unpack {unpack_ms:.3f}"
+           f" ms, against compact_voxels_blocked {compact_ms:.3f} ms "
+           "(medians)")
+    report["parts_ms"] = {"pack": pack_ms, "download": dl_ms,
+                          "unpack": unpack_ms,
+                          "compact_voxels_blocked": compact_ms}
+    if dev.type == "cuda":
+        def viewer4():
+            list(m.stream_viewer(iter(frames[:4])))
+            sync(torch, dev)
+        report["profile"] = profile_step(
+            torch, viewer4, report["stream_viewer"]["bgr"]["ms_per_frame"],
+            "  profile of stream_viewer(ingest='bgr') over 4 rig frames:",
+            frames=4, frames_per_step=4, top=8)
+
+    # the guard, card vs CPU
+    report["validate"] = {}
+    for ingest in INGESTS[1:]:
+        got = m.validate_reduced_ingest(frames[2], ingest=ingest,
+                                        roi_hw=roi_hw)
+        want = mc_cpu.validate_reduced_ingest(frames[2], ingest=ingest,
+                                              roi_hw=roi_hw)
+        expect(got == want and got["occ_exact"] > 0,
+               f"validate_reduced_ingest(ingest={ingest!r}) on rig frame 2 "
+               f"equal on {dev.type} and on the CPU: mask_iou_min "
+               f"{got['mask_iou_min']}, occ_diff_voxels "
+               f"{got['occ_diff_voxels']} of {got['occ_exact']}, "
+               f"max_channel_err {got['max_channel_err']}")
+        report["validate"][ingest] = got
+
+    # one rig frame's wire of each upload, byte for byte (the device path
+    # whatever its overflow word); a forced pack overflow; phase 7's
+    # component overflow
+    tr = m._roi_tracker(roi_hw)
+    tr.update(frames[0])
+    for ingest in INGESTS:
+        mode, upload, off = m._ingest_prepare(ingest, tr, frames[1])
+        wire = m._dispatch(m._frames(upload), "packed", mode, off)
+        wire_c = mc_cpu._dispatch(mc_cpu._frames(upload), "packed", mode,
+                                  off)
+        head = cb.decode_wire(wire, total_voxels=nvox)[:3]
+        expect(torch.equal(wire.cpu(), wire_c),
+               f"rig frame 1's wire from a {mode!r} upload ({wire.numel()} "
+               f"B; overflow word, occupied sub-blocks, voxels {head}) "
+               f"byte-equal on {dev.type} and on the CPU")
+    wire = m._dispatch(m._frames(frames[0]), "packed")
+    n_blocks = cb.decode_wire(wire, total_voxels=nvox)[1]
+    k_default = cb.WIRE_K_BLOCKS
+    cb.WIRE_K_BLOCKS = n_blocks - 1
+    try:
+        forced = cb.decode_wire(m._dispatch(m._frames(frames[0]), "packed"),
+                                total_voxels=nvox)[0]
+        got = list(m.stream_viewer(iter(frames[:2])))
+        want = list(mc_cpu.stream_viewer(iter(frames[:2])))
+    finally:
+        cb.WIRE_K_BLOCKS = k_default
+    expect(forced == 1 and all(same_arrays(a, b) for a, b in zip(got, want))
+           and all(same_arrays(a, b) for a, b in zip(got, lossless)),
+           f"a wire of {n_blocks - 1} sub-blocks overflows on rig frame 0; "
+           "stream_viewer takes the exact fallback, equal on the card and "
+           "on the CPU and to the lossless arrays")
+    ovf_word = cb.decode_wire(model._dispatch(model._frames(fo), "packed"),
+                              total_voxels=model.grid.num_voxels)[0]
+    got = list(model.stream_viewer(iter([fo])))
+    want = list(model_cpu.stream_viewer(iter([fo])))
+    expect(ovf_word == 1 and same_arrays(got[0], want[0]) and len(got[0][0]),
+           "phase 7's overflow frame sets the wire's overflow word; "
+           f"stream_viewer redoes it exactly, equal on {dev.type} and on the "
+           "CPU")
+
+    # stream_surface with the reduced uploads, both transfers
+    report["stream_surface"] = {}
+    for ingest in INGESTS[1:]:
+        t0 = time.perf_counter()
+        want = list(mc_cpu.stream_surface(iter(frames), ingest=ingest,
+                                          roi_hw=roi_hw))
+        cpu_s = time.perf_counter() - t0
+        for transfer in ("full", "wire"):
+            reset_counts()
+            t0 = time.perf_counter()
+            got = list(m.stream_surface(iter(frames), transfer=transfer,
+                                        ingest=ingest, roi_hw=roi_hw))
+            sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+            launches = k1_k2_launches()
+            ok = len(got) == len(frames)
+            for (tris, occ), (tris_c, occ_c) in zip(got, want):
+                occ = occ.cpu().numpy() if hasattr(occ, "cpu") else occ
+                ok &= (np.array_equal(tris, tris_c) and len(tris) > 0
+                       and np.array_equal(occ, occ_c.numpy()))
+            expect(ok and (dev.type == "cpu"
+                           or min(launches.values()) >= len(frames)),
+                   f"stream_surface(ingest={ingest!r}, transfer="
+                   f"{transfer!r}) on the rig's {len(frames)} frames equal "
+                   f"on {dev.type} and on the CPU (CPU {cpu_s:.1f} s); "
+                   f"{ms:.3f} ms/frame (mean, first call); launches "
+                   f"{launches}")
+            report["stream_surface"][f"{ingest} {transfer}"] = {
+                "ms_per_frame": ms, "launches": launches}
+
+    # the native host tails against their numpy references
+    stack = np.stack(frames)
+    packs = [native.yuv420_pack(fr) for fr in frames]
+    expect(all(np.array_equal(p, color_ops._bgr_to_yuv420_numpy(fr))
+               for p, fr in zip(packs, frames)),
+           f"native.yuv420_pack byte-equal to the numpy pack on the rig's "
+           f"{len(frames)} frames")
+    pack_ms, _ = host_ms(lambda: native.yuv420_pack(stack[0]))
+    pack_np_ms, _ = host_ms(lambda: color_ops._bgr_to_yuv420_numpy(stack[0]))
+    track_ms, _ = host_ms(lambda: tracker.update(stack[1]))
+    crop_ms, _ = host_ms(lambda: color_ops.bgr_to_yuv420_host(
+        tracker.crop(stack[1])))
+    occ0, _, ovf0 = m._step(m._frames(frames[0]))
+    (buf,), ready = _start_download((_encode_surface_wire(
+        occ0, ovf0, m.grid.shape, SURFACE_CAPACITY),))
+    _wait(ready)
+    _, n_w, idx_w, cfg_w, _ = _decode_surface_wire(buf, SURFACE_CAPACITY,
+                                                   nvox)
+    origin, spacing = m._world_frame()
+    tv, tvalid = mc._binary_emit_table(*SURFACE_PAIR, 0.5)
+    gs = m.grid.shape
+    emit_ms, tris = host_ms(lambda: mc.triangles_from_wire(
+        idx_w, cfg_w, n_w, gs, origin, spacing, *SURFACE_PAIR))
+    emit_np_ms, tris_np = host_ms(lambda: mc._triangles_from_wire_numpy(
+        idx_w, cfg_w, n_w, tv, tvalid, gs[1] - 1, gs[2] - 1, origin,
+        spacing))
+    expect(len(tris) > 0 and tris.view(np.uint32).tobytes()
+           == tris_np.view(np.uint32).tobytes(),
+           f"native.mc_emit bit-equal to the numpy tail on rig frame 0's "
+           f"surface wire ({n_w} active cells, {len(tris)} triangles)")
+    report["host_ms"] = {"yuv420_pack": pack_ms, "yuv420_pack_numpy":
+                         pack_np_ms, "tracker_update": track_ms,
+                         "roi_crop_and_pack": crop_ms, "mc_emit": emit_ms,
+                         "mc_emit_numpy": emit_np_ms}
+    print(f"  host ms (medians of 10): {report['host_ms']}")
+
+    # a viewer frame queued with no host synchronisation, up to its download
+    if dev.type == "cuda":
+        tr = m._roi_tracker(roi_hw)
+        tr.update(frames[0])
+        for ingest, t in (("bgr", None), ("yuv420", None),
+                          ("yuv420_roi", tr)):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                mode, upload, off = m._ingest_prepare(ingest, t, frames[1])
+                _start_download((m._dispatch(m._frames(upload), "packed",
+                                             mode, off),))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sync(torch, dev)
+            print(f"  ok: a stream_viewer frame (ingest={ingest!r}, mode "
+                  f"{mode!r}) queued up to its download with no host "
+                  "synchronisation (torch.cuda.set_sync_debug_mode('error'))")
+    return report
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
-        seam_sizes=((128, 64, 128), (100, 50, 100))):
+        seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
@@ -1957,6 +2289,14 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                             frame0, occ_c, col_c, seq, rig_models, step_ms)
     print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
 
+    # -- [17] the thin-link viewer stream ---------------------------------
+    print(f"[17] the thin-link viewer stream: stream_viewer over the rig's "
+          f"{RIG_FRAMES} frames, ingest {INGESTS}", flush=True)
+    t0 = time.perf_counter()
+    viewer = viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo,
+                          rig_models, roi_hw)
+    print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -2004,6 +2344,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                     "launches": off_launches, "profile": offline_profile},
         "seam": seam,
         "surface": surface,
+        "viewer": viewer,
     }
 
 

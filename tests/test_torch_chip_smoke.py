@@ -59,7 +59,8 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             focal=120.0, mask_params=mp, train_frames=3,
                             k3_frames=2, label_large_hw=(16, 256),
                             label_cap=16,
-                            seam_sizes=((32, 16, 32), (20, 8, 16)))
+                            seam_sizes=((32, 16, 32), (20, 8, 16)),
+                            roi_hw=(112, 128))
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -143,12 +144,44 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "stream_surface(transfer='wire') on the stream's 16 frames",
                  "stream_surface(transfer='full') on the rig's 8 frames",
                  "stream_surface(transfer='wire') on the rig's 8 frames",
-                 "the wire's numpy tail gives rig frame 0's triangles",
+                 "the wire's host tail gives rig frame 0's triangles",
                  "extract_mesh on the step's occupancy gives the same "
                  "triangles, occupancy and colours",
                  "surface_program(block_capacity=2) on three separated cubes",
                  "extract_surface equals process_frame_surface",
                  "textured_frame: occupancy, colours and cam_choice equal"):
+        assert f"ok: {what}" in out
+    # phase 17: the viewer stream, the guard, the wire, the native tails
+    viewer = report["viewer"]
+    assert viewer["wire_bytes"] == 12 + 512 * (4 + 64) + 98304 * 3
+    assert set(viewer["stream_viewer"]) == {"bgr", "yuv420", "yuv420_roi"}
+    assert viewer["roi_modes"][0] == "yuv420"
+    assert set(viewer["redone"]) == set(viewer["raw_components"]) == {
+        "bgr", "yuv420", "yuv420_roi"}
+    assert "yuv420_roi" in viewer["roi_modes"][1:]
+    assert set(viewer["stream_surface"]) == {
+        "yuv420 full", "yuv420 wire", "yuv420_roi full", "yuv420_roi wire"}
+    assert set(viewer["host_ms"]) == {
+        "yuv420_pack", "yuv420_pack_numpy", "tracker_update",
+        "roi_crop_and_pack", "mc_emit", "mc_emit_numpy"}
+    for what in ("stream_viewer(ingest='bgr') on the rig's 8 frames: "
+                 "(positions, rgb) bit-equal",
+                 "stream_viewer(ingest='yuv420') on the rig's 8 frames",
+                 "stream_viewer(ingest='yuv420_roi') on the rig's 8 frames",
+                 "stream_viewer(ingest='bgr') equals compact_voxels_blocked",
+                 "validate_reduced_ingest(ingest='yuv420') on rig frame 2 "
+                 "equal", "validate_reduced_ingest(ingest='yuv420_roi')",
+                 "rig frame 1's wire from a 'bgr' upload (329740 B",
+                 "rig frame 1's wire from a 'yuv420' upload",
+                 "rig frame 1's wire from a 'yuv420_roi' upload",
+                 "a wire of", "the wire's parts on rig frame 0",
+                 "phase 7's overflow frame sets the wire's overflow word",
+                 "stream_surface(ingest='yuv420', transfer='full')",
+                 "stream_surface(ingest='yuv420', transfer='wire')",
+                 "stream_surface(ingest='yuv420_roi', transfer='full')",
+                 "stream_surface(ingest='yuv420_roi', transfer='wire')",
+                 "native.yuv420_pack byte-equal to the numpy pack",
+                 "native.mc_emit bit-equal to the numpy tail"):
         assert f"ok: {what}" in out
 
 

@@ -11,6 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "vbr_tpu_torch.apps.assignment_api",
     "vbr_tpu_torch.models.visual_hull",
+    "vbr_tpu_torch.native",
+    "vbr_tpu_torch.native.build",
     "vbr_tpu_torch.ops._cuda",
     "vbr_tpu_torch.ops.camera",
     "vbr_tpu_torch.ops.carve",
@@ -27,6 +29,7 @@ MODULES = [
     "vbr_tpu_torch.utils.artifacts",
     "vbr_tpu_torch.utils.config",
     "vbr_tpu_torch.utils.device",
+    "vbr_tpu_torch.utils.roi",
     "vbr_tpu_torch.utils.synthetic",
     "vbr_tpu_torch.utils.video",
     "vbr_tpu_torch.utils.xmlio",
@@ -98,3 +101,47 @@ def test_carve_kernels_list_their_shared_header():
         assert all(d.exists() for d in k.deps)
         assert f'#include "{k.deps[0].name}"' in k.source.read_text()
     assert carve_blocked.K1.lib_path != carve_blocked.K4.lib_path
+
+
+def test_host_lib_path_follows_source_and_flags(tmp_path):
+    """The host library is named by its source and its flags: editing
+    either names another library."""
+    from vbr_tpu_torch.native import build
+
+    src = tmp_path / "h.cpp"
+    src.write_text("// one\n")
+    first = build.lib_path(src)
+    assert first == build.lib_path(src) and first.parent == build.BUILD_DIR
+    assert build.lib_path(src, build.FLAGS + ("-DX=1",)) != first
+    src.write_text("// two\n")
+    assert build.lib_path(src) != first
+    assert build.lib_path().name.startswith("libvbr_host_")
+    assert "-ffp-contract=off" in build.FLAGS
+    assert not any(f.startswith("-march") for f in build.FLAGS)
+
+
+@pytest.mark.parametrize("how", ["broken source", "no compiler"])
+def test_host_lib_that_fails_to_build_raises(tmp_path, monkeypatch, how):
+    """No numpy fallback: when the host library cannot be built, the pack
+    and the emission raise."""
+    import numpy as np
+
+    from vbr_tpu_torch.native import build
+    from vbr_tpu_torch.ops import color, marching_cubes
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "host")
+    if how == "broken source":
+        src = tmp_path / "vbr_host.cpp"
+        src.write_text("this is not C++\n")
+        monkeypatch.setattr(build, "SOURCE", src)
+        match = "g\\+\\+ failed"
+    else:
+        monkeypatch.setattr(build.shutil, "which", lambda name: None)
+        match = "g\\+\\+ not found"
+    with pytest.raises(RuntimeError, match=match):
+        color.bgr_to_yuv420_host(np.zeros((1, 4, 4, 3), np.uint8))
+    with pytest.raises(RuntimeError, match=match):
+        marching_cubes.triangles_from_wire(
+            np.zeros(4, np.int32), np.ones(4, np.uint8), 4, (3, 3, 3))
+    assert not (tmp_path / "host").exists() or not any(
+        p.suffix == ".so" for p in (tmp_path / "host").iterdir())

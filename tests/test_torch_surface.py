@@ -557,10 +557,14 @@ def test_surface_wire_matches(models):
 
 
 def test_stream_surface_refuses_what_is_not_ported(models):
+    """Unknown transfers and ingest formats raise; the reduced-byte ingest
+    formats run (``tests/test_torch_ingest.py`` holds them to
+    ``vbr_tpu``)."""
     _, mt, frames = models
     for ingest in ("yuv420", "yuv420_roi"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            next(mt.stream_surface(iter(frames), ingest=ingest))
+        tris, occ = next(mt.stream_surface(iter(frames), ingest=ingest,
+                                           roi_hw=(48, 64)))
+        assert tris.dtype == np.float32 and occ.shape == (mt.grid.num_voxels,)
     with pytest.raises(ValueError, match="transfer"):
         next(mt.stream_surface(iter(frames), transfer="zip"))
     with pytest.raises(ValueError, match="ingest"):

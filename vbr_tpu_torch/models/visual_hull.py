@@ -35,11 +35,22 @@ surface over the ``capacity`` with ``extract_mesh`` and redoes a frame
 that overflows a component table.
 ``extract_surface``, ``textured_frame`` and ``viewer_arrays`` run on the
 plain table path.
+
+``stream_viewer`` is the thin-link viewer stream: per frame the step ends
+in the packed viewer wire (``carve_blocked.pack_blocked_outputs`` +
+``encode_wire``, ~0.33 MB at 128³ where the blocked outputs are 8.4 MB),
+downloaded into pinned memory while the next frames run, and unpacked on
+the host into the viewer's (positions, rgb).  It and ``stream_surface``
+take the reduced-byte uploads ``ingest="yuv420"`` (the YUV 4:2:0 wire
+format, half the bytes) and ``"yuv420_roi"`` (a fixed window per camera
+placed by ``utils.roi.MotionROITracker``); both are lossy, and
+``validate_reduced_ingest`` measures what they change.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import os
 from typing import List, Optional, Sequence
 
@@ -48,6 +59,7 @@ import torch
 
 from vbr_tpu_torch.ops import carve as carve_ops
 from vbr_tpu_torch.ops import carve_blocked, ccl, texturing
+from vbr_tpu_torch.ops import color as color_ops
 from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops.gmm import MOGState
 from vbr_tpu_torch.pipelines import background, reconstruction
@@ -61,8 +73,10 @@ from vbr_tpu_torch.utils.config import (
     RigConfig,
 )
 from vbr_tpu_torch.utils.device import resolve_device
+from vbr_tpu_torch.utils.roi import MotionROITracker
 
 _UNBUILT = object()  # blocked tables not asked for yet
+INGESTS = ("bgr", "yuv420", "yuv420_roi")  # the streams' upload formats
 
 
 class VisualHull:
@@ -111,10 +125,15 @@ class VisualHull:
         return self._tables
 
     def _frames(self, frames) -> torch.Tensor:
+        """u8 frames on the model's device.  A host array goes to the card
+        through pinned memory, asynchronously: the host does not wait for
+        the copy, and the pinned buffer is kept until it has landed."""
         if isinstance(frames, torch.Tensor):
             return frames.to(self.device, torch.uint8)
-        return torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(
-            self.device)
+        host = torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _ensure_fast_state(self):
         if self._stacked_fz is None:
@@ -244,7 +263,7 @@ class VisualHull:
             color_camera=self.rig.color_camera,
         )
 
-    def _dispatch(self, frames_d, layout):
+    def _dispatch(self, frames_d, layout, ingest="bgr", roi_offsets=None):
         return _full_step(
             self._stacked_fz, frames_d, self._btab,
             mask_params=self.mask_params,
@@ -252,6 +271,7 @@ class VisualHull:
             fig_thresholds=self._fig_thresholds,
             inner_thresholds=self._inner_thresholds,
             views_threshold=self.rig.views_threshold, layout=layout,
+            ingest=ingest, roi_offsets=roi_offsets,
         )
 
     def _redo(self, frames_d, layout):
@@ -294,13 +314,15 @@ class VisualHull:
             self._blocked_tables_for("the blocked carve")
         return carve_kernel
 
-    def _step(self, frames_d, carve_kernel="auto", layout="canonical"):
-        """Queue the fused per-frame step → (occ, col, ovf) on the model's
-        device: kernels K2 and K1 on the blocked tables (their plain
-        versions on a CPU model), or the table step (``"tables"``, which
-        returns canonical order whatever ``layout``)."""
+    def _step(self, frames_d, carve_kernel="auto", layout="canonical",
+              ingest="bgr", roi_offsets=None):
+        """Queue the fused per-frame step on an upload in format ``ingest``
+        → (occ, col, ovf) on the model's device: kernels K2 and K1 on the
+        blocked tables (their plain versions on a CPU model), or the table
+        step (``"tables"``, which returns canonical order whatever
+        ``layout``)."""
         if self._carve_kernel(carve_kernel) == "blocked":
-            return self._dispatch(frames_d, layout)
+            return self._dispatch(frames_d, layout, ingest, roi_offsets)
         return _full_step_tables(
             self._stacked_fz, frames_d, self.tables,
             mask_params=self.mask_params,
@@ -309,6 +331,7 @@ class VisualHull:
             inner_thresholds=self._inner_thresholds,
             views_threshold=self.rig.views_threshold,
             color_camera=self.rig.color_camera,
+            ingest=ingest, roi_offsets=roi_offsets,
         )
 
     def stream(self, frames_iter, layout: str = "blocked"):
@@ -333,6 +356,169 @@ class VisualHull:
         if bool(ovf.any()):
             return self._redo(frames_d, layout)
         return occ, col
+
+    # -- thin-link viewer stream -------------------------------------------
+
+    def _roi_tracker(self, roi_hw):
+        """The ROI tracker, classifying with the frozen model itself on a
+        strided grid (``utils.roi``)."""
+        fz = self._stacked_fz
+        return MotionROITracker(
+            carve_ops.to_host(fz.mean), carve_ops.to_host(fz.thr),
+            carve_ops.to_host(fz.bcount), roi_hw,
+            use_hsv=self.mog_params[0].use_hsv,
+            figure_threshold=min(p.figure_threshold
+                                 for p in self.mask_params))
+
+    def _ingest_prepare(self, ingest, tracker, frames):
+        """The host side of an upload → (mode, upload, roi offsets or
+        None).  ``yuv420_roi`` falls back to ``yuv420`` on a frame whose
+        foreground the tracker cannot hold in its windows."""
+        if ingest == "bgr":
+            return "bgr", frames, None
+        frames = carve_ops.to_host(frames)
+        if ingest == "yuv420_roi":
+            offsets, full_needed = tracker.update(frames)
+            if not full_needed:
+                return ("yuv420_roi",
+                        color_ops.bgr_to_yuv420_host(tracker.crop(frames)),
+                        offsets)
+        return "yuv420", color_ops.bgr_to_yuv420_host(frames), None
+
+    def stream_viewer(self, frames_iter, depth: int = 3,
+                      ingest: str = "bgr", roi_hw=(320, 224)):
+        """Streaming viewer arrays for a thin link: frames (C, H, W, 3) u8
+        in, the viewer's ``(positions, rgb)`` out, in the rows of
+        ``carve_blocked.compact_voxels_blocked`` (blocked order).
+
+        Each frame's step (kernels K2 and K1) ends in the packed viewer
+        wire (``carve_blocked.pack_blocked_outputs`` + ``encode_wire``:
+        ~0.33 MB at 128³), whose download into pinned memory is queued at
+        once; ``depth`` frames stay in flight, and a frame is unpacked on
+        the host when it leaves the queue.  A frame whose cleanup overflows
+        a component table, or whose wire overflows a capacity, is redone
+        exactly from its BGR frames (host cleanup, uncompressed carve).
+
+        ``ingest="yuv420"`` uploads the YUV 4:2:0 pack (half the bytes),
+        unpacked on the device inside the step; ``"yuv420_roi"`` uploads
+        only a ``roi_hw`` window of each camera, placed by a
+        ``utils.roi.MotionROITracker`` seeded by the frozen model, and falls
+        back to the full ``yuv420`` upload on frames whose foreground the
+        windows cannot hold.  Both are lossy: hold them to
+        :meth:`validate_reduced_ingest` on representative frames first.
+        The viewer's colours come from the reconstructed frames."""
+        if ingest not in INGESTS:
+            raise ValueError(f"unknown ingest format {ingest!r}")
+        self._ensure_fast_state()
+        self._blocked_tables_for("stream_viewer")
+        tracker = (self._roi_tracker(roi_hw) if ingest == "yuv420_roi"
+                   else None)
+        q = collections.deque()
+
+        def dispatch(frames):
+            # the BGR frames ride along for the exact fallback; only the
+            # upload takes the reduced format
+            mode, upload, roi_off = self._ingest_prepare(ingest, tracker,
+                                                         frames)
+            wire = self._dispatch(self._frames(upload), "packed", mode,
+                                  roi_off)
+            (wire,), ready = _start_download((wire,))
+            return wire, ready, frames
+
+        def resolve(entry):
+            wire, ready, frames = entry
+            _wait(ready)
+            (any_ovf, n_blocks, n_vox, ids, packed_k,
+             cols) = carve_blocked.decode_wire(
+                wire, total_voxels=self.grid.num_voxels)
+            if any_ovf:
+                occ, col = self._redo(self._frames(frames), "blocked")
+                return carve_blocked.compact_voxels_blocked(
+                    occ, col, self._btab, self.grid,
+                    self.rig.scaling_factor)
+            return carve_blocked.viewer_arrays_from_packed(
+                packed_k, ids, n_blocks, n_vox, cols, self._btab, self.grid,
+                self.rig.scaling_factor)
+
+        for frames in frames_iter:
+            q.append(dispatch(frames))
+            if len(q) > depth:
+                yield resolve(q.popleft())
+        while q:
+            yield resolve(q.popleft())
+
+    def validate_reduced_ingest(self, frames, ingest: str = "yuv420",
+                                roi_hw=(320, 224)):
+        """What a reduced-byte ingest changes on ``frames`` (C, H, W, 3)
+        u8, measured where it matters: the cleaned masks and the carved
+        hull (the f64 table carve), on the model's device.  Returns a dict:
+
+          mask_iou        per-camera IoU of the cleaned masks (BGR against
+                          the reduced upload)
+          mask_iou_min    their minimum
+          occ_diff_voxels voxels whose occupancy differs
+          occ_exact       occupied voxels from the BGR frames
+          max_channel_err max |reconstructed − original| over the pixels
+                          (inside the windows, for ``"yuv420_roi"``)
+
+        For ``"yuv420_roi"`` one tracker update places the windows; its
+        full-frame signal (always set on a first frame) is ignored, since
+        the guard measures the ROI path's loss at that placement."""
+        self._ensure_fast_state()
+        frames = carve_ops.to_host(frames)
+        frames_d = self._frames(frames)
+        image_hw = tuple(frames.shape[1:3])
+
+        def masks_of(raw):
+            cleaned, _ = ccl.clean_masks_batched(
+                raw, self._fig_thresholds, self._inner_thresholds)
+            return background.finalize_masks_batched(cleaned,
+                                                     self.mask_params)
+
+        use_hsv = self.mog_params[0].use_hsv
+        m_exact = masks_of(background.raw_masks_batched_fz(
+            self._stacked_fz, frames_d, self.mask_params, use_hsv))
+        region = torch.ones(frames.shape[:3], dtype=torch.bool,
+                            device=self.device)
+        if ingest == "yuv420_roi":
+            tracker = self._roi_tracker(roi_hw)
+            offsets, _ = tracker.update(frames)
+            rois = color_ops.yuv420_to_bgr_u8(self._frames(
+                color_ops.bgr_to_yuv420_host(tracker.crop(frames))))
+            m_red = masks_of(background.raw_masks_batched_fz_roi(
+                self._stacked_fz, rois, offsets, self.mask_params, use_hsv,
+                image_hw=image_hw))
+            recon = background.paste_rois(rois, offsets, image_hw)
+            region = torch.zeros_like(region)
+            for c, (y0, x0) in enumerate(offsets.tolist()):
+                region[c, y0:y0 + roi_hw[0], x0:x0 + roi_hw[1]] = True
+        elif ingest == "yuv420":
+            recon = color_ops.yuv420_to_bgr_u8(self._frames(
+                color_ops.bgr_to_yuv420_host(frames)))
+            m_red = masks_of(background.raw_masks_batched_fz(
+                self._stacked_fz, recon, self.mask_params, use_hsv))
+        else:
+            raise ValueError(f"unknown reduced ingest {ingest!r}")
+        err = (recon.to(torch.int32) - frames_d.to(torch.int32)).abs()
+        chan_err = int(err.amax(dim=-1)[region].max())
+        a, b = m_exact > 0, m_red > 0
+        inter = (a & b).sum(dim=(1, 2)).tolist()
+        union = (a | b).sum(dim=(1, 2)).tolist()
+        ious = [float(i / u) if u else 1.0 for i, u in zip(inter, union)]
+        t = self.tables
+        carve = functools.partial(
+            carve_ops.carve_from_tables, valid=t.valid, lin_idx=t.lin_idx,
+            views_threshold=self.rig.views_threshold,
+            color_camera=self.rig.color_camera)
+        occ_e, _ = carve(m_exact, frames_d)
+        occ_r, _ = carve(m_red, recon)
+        return {
+            "mask_iou": [round(x, 6) for x in ious],
+            "mask_iou_min": round(min(ious), 6),
+            "occ_diff_voxels": int((occ_e != occ_r).sum()),
+            "occ_exact": int(occ_e.sum()),
+            "max_channel_err": chan_err,
+        }
 
     # -- offline whole-sequence path ---------------------------------------
 
@@ -399,14 +585,16 @@ class VisualHull:
              float(zs[1] - zs[0])),
         )
 
-    def _surface_redo(self, frames_d, occ, col, ccl_overflow, algorithm,
+    def _surface_redo(self, frames_d, occ, col, recarve, algorithm,
                       ambiguity):
-        """Exact fallback of the surface step (rare) → (tris, occ, col).  A
-        component-table overflow redoes the frame on the plain table path; a
-        surface over the ``capacity`` (or the block limit) keeps the step's
-        occupancy, which is exact, and meshes it with ``extract_mesh`` (the
-        config grid on its device, the emission on the host)."""
-        if ccl_overflow:
+        """Exact fallback of the surface step (rare) → (tris, occ, col).
+        With ``recarve`` (a component-table overflow, or a reduced upload)
+        the BGR frames ``frames_d`` are carved again on the plain table
+        path; otherwise (a surface over the ``capacity`` or the block limit)
+        the step's occupancy, which is exact, is kept.  Either is meshed
+        with ``extract_mesh`` (the config grid on its device, the emission
+        on the host)."""
+        if recarve:
             occ, col = self.process_frame(frames_d)
         origin, spacing = self._world_frame()
         tris, _ = mc.extract_mesh(occ.reshape(self.grid.shape), origin=origin,
@@ -450,7 +638,7 @@ class VisualHull:
     def stream_surface(self, frames_iter, depth: int = 2,
                        algorithm: str = "cubes", ambiguity: str = "join",
                        capacity: int = 32768, transfer: str = "full",
-                       ingest: str = "bgr"):
+                       ingest: str = "bgr", roi_hw=(320, 224)):
         """Streaming surface reconstruction: frames in, meshes out.
 
         Each frame's step (that of :meth:`process_frame_surface`) is queued
@@ -464,25 +652,30 @@ class VisualHull:
         configs and the bit-packed occupancy (``_encode_surface_wire``,
         ~0.43 MB at 128³ and the default capacity) instead of the emitted
         triangles (~7.1 MB), and the host emits the same triangles from the
-        generated table; ``occ`` is then a numpy array.  ``ingest`` takes
-        ``"bgr"`` frames; the reduced-byte formats are not ported yet.
+        generated table (``native.mc_emit``); ``occ`` is then a numpy
+        array.  ``ingest`` takes the reduced-byte uploads of
+        :meth:`stream_viewer` (``"yuv420"``, ``"yuv420_roi"``; lossy, see
+        :meth:`validate_reduced_ingest`), unpacked on the device inside the
+        step on either carve; a frame that falls back is redone from its
+        BGR frames, as in the JAX package.
         """
         if transfer not in ("full", "wire"):
             raise ValueError(f"unknown transfer mode {transfer!r}")
-        if ingest in ("yuv420", "yuv420_roi"):
-            raise NotImplementedError(
-                f"ingest={ingest!r}: the reduced-byte ingest formats are "
-                "not ported yet (ROADMAP.md, Queue 1 item 4); pass "
-                "ingest='bgr'")
-        if ingest != "bgr":
+        if ingest not in INGESTS:
             raise ValueError(f"unknown ingest format {ingest!r}")
         mc.table_emitter(algorithm, ambiguity, 0.5)  # validates the rule
+        self._ensure_fast_state()
         origin, spacing = self._world_frame()
+        tracker = (self._roi_tracker(roi_hw) if ingest == "yuv420_roi"
+                   else None)
         q = collections.deque()
 
         def dispatch(frames):
-            frames_d = self._frames(frames)
-            occ, col, ovf = self._step(frames_d)
+            mode, upload, roi_off = self._ingest_prepare(ingest, tracker,
+                                                         frames)
+            upload_d = self._frames(upload)
+            occ, col, ovf = self._step(upload_d, ingest=mode,
+                                       roi_offsets=roi_off)
             if transfer == "wire":
                 out = (_encode_surface_wire(occ, ovf, self.grid.shape,
                                             capacity),)
@@ -491,10 +684,12 @@ class VisualHull:
                     occ.reshape(self.grid.shape), algorithm=algorithm,
                     ambiguity=ambiguity, capacity=capacity), ovf)
             host, ready = _start_download(out)
-            return host, ready, frames_d, occ, col
+            # the BGR frames for a fallback: the upload itself, or the host
+            # frames behind a reduced upload
+            return host, ready, upload_d if mode == "bgr" else frames, occ, col
 
         def resolve(entry):
-            host, ready, frames_d, occ, col = entry
+            host, ready, frames, occ, col = entry
             _wait(ready)
             if transfer == "wire":
                 any_ovf, n_active, idx, cfg, occ_h = _decode_surface_wire(
@@ -503,8 +698,10 @@ class VisualHull:
                 verts, valid, n_active, ovf = host
                 any_ovf, n_active = bool(ovf.any()), int(n_active)
             if any_ovf or n_active > capacity:
+                # the step's occupancy stands only for BGR frames
                 tris, occ, _ = self._surface_redo(
-                    frames_d, occ, col, bool(any_ovf), algorithm, ambiguity)
+                    self._frames(frames), occ, col,
+                    bool(any_ovf) or ingest != "bgr", algorithm, ambiguity)
                 return tris, (carve_ops.to_host(occ) if transfer == "wire"
                               else occ)
             if transfer == "wire":
@@ -579,31 +776,72 @@ class VisualHull:
         return True
 
 
+def _ingest(stacked_fz, upload, *, mask_params, use_hsv, ingest,
+            roi_offsets):
+    """The mask stage's head on an upload in format ``ingest`` → (raw masks
+    (C, H, W) u8 with pre-morphology, BGR frames (C, H, W, 3) u8).
+
+    ``"bgr"``: the frames themselves.  ``"yuv420"``: the (C, H·3/2, W) u8
+    YUV 4:2:0 pack, unpacked here.  ``"yuv420_roi"``: the pack of (C, RH,
+    RW) windows at the host ``roi_offsets`` (C, 2); the frozen model is
+    applied to the windows (``background.raw_masks_batched_fz_roi``) and
+    the frames are the windows pasted onto zeros."""
+    if ingest == "yuv420_roi":
+        image_hw = tuple(stacked_fz.bcount.shape[1:3])
+        rois = color_ops.yuv420_to_bgr_u8(upload)
+        raw = background.raw_masks_batched_fz_roi(
+            stacked_fz, rois, roi_offsets, mask_params, use_hsv,
+            image_hw=image_hw)
+        return raw, background.paste_rois(rois, roi_offsets, image_hw)
+    if ingest == "yuv420":
+        frames = color_ops.yuv420_to_bgr_u8(upload)
+    elif ingest == "bgr":
+        frames = upload
+    else:
+        raise ValueError(f"unknown ingest format {ingest!r}")
+    return background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
+                                           use_hsv), frames
+
+
 def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
-               fig_thresholds, inner_thresholds, views_threshold, layout):
-    """The per-frame pipeline: HSV → compressed frozen MOG apply →
-    pre-morphology → CCL cleanup → post-morphology → blocked carve.
-    Returns (occ, colors, overflow (C,) bool)."""
-    raw = background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
-                                          use_hsv)
+               fig_thresholds, inner_thresholds, views_threshold, layout,
+               ingest="bgr", roi_offsets=None):
+    """The per-frame pipeline: (YUV unpack →) HSV → compressed frozen MOG
+    apply → pre-morphology → CCL cleanup → post-morphology → blocked carve
+    (see :func:`_ingest` for ``ingest`` and ``roi_offsets``).  Returns
+    (occ, colors, overflow (C,) bool) in ``layout`` order, or with
+    ``layout="packed"`` the viewer wire (``carve_blocked.encode_wire``
+    of the blocked outputs, its overflow word set by a component-table or
+    a wire overflow)."""
+    raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
+                          use_hsv=use_hsv, ingest=ingest,
+                          roi_offsets=roi_offsets)
     cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
                                            inner_thresholds)
     masks = background.finalize_masks_batched(cleaned, mask_params)
     occ, col = carve_blocked.carve_blocked(
         masks, frames[btab.color_camera], btab,
-        views_threshold=views_threshold, layout=layout,
+        views_threshold=views_threshold,
+        layout="blocked" if layout == "packed" else layout,
     )
+    if layout == "packed":
+        packed_k, ids, n_blocks, n_vox, cols, bovf = (
+            carve_blocked.pack_blocked_outputs(occ, col))
+        return carve_blocked.encode_wire(packed_k, ids, n_blocks, n_vox,
+                                         cols, ovf.any() | bovf)
     return occ, col, ovf
 
 
 def _full_step_tables(stacked_fz, frames, tables, *, mask_params, use_hsv,
                       fig_thresholds, inner_thresholds, views_threshold,
-                      color_camera):
+                      color_camera, ingest="bgr", roi_offsets=None):
     """The per-frame pipeline on the table path: the mask stages of
-    :func:`_full_step`, then the f64 table carve.  Returns (occ (N,) bool,
-    colors (N, 3) u8, overflow (C,) bool), canonical order."""
-    raw = background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
-                                          use_hsv)
+    :func:`_full_step` (the same ``ingest`` formats), then the f64 table
+    carve.  Returns (occ (N,) bool, colors (N, 3) u8, overflow (C,) bool),
+    canonical order."""
+    raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
+                          use_hsv=use_hsv, ingest=ingest,
+                          roi_offsets=roi_offsets)
     cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
                                            inner_thresholds)
     masks = background.finalize_masks_batched(cleaned, mask_params)

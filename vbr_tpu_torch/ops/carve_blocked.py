@@ -14,7 +14,11 @@ Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
     launch, occupancy only, with colours gathered on the host
     (``frame_colors_host``);
   * host helpers for the blocked layout — ``canonicalize_host`` and
-    ``compact_voxels_blocked``.
+    ``compact_voxels_blocked``;
+  * the packed viewer wire — ``pack_blocked_outputs`` and ``encode_wire``
+    on the device (one u8 buffer per frame: a bitmap of each occupied
+    sub-block and the colours of the occupied voxels), ``decode_wire`` and
+    ``viewer_arrays_from_packed`` on the host.
 
 The voxel grid is tiled into 8³ sub-blocks (512 voxels) grouped into
 superblocks; ``perm`` maps each (superblock, sub-block, voxel) slot to its
@@ -27,12 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vbr_tpu_torch.ops import camera as cam_ops
+from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops._cuda import CudaKernel, check, ptr
 from vbr_tpu_torch.ops.carve import to_host, viewer_arrays
 from vbr_tpu_torch.utils.config import CameraParams, GridConfig
@@ -532,3 +538,114 @@ def compact_voxels_blocked(occ_blocked, colors_blocked, tables: BlockTables,
     col = np.moveaxis(to_host(colors_blocked), 2, 3).reshape(-1, 3)
     pts = grid.voxel_points()[tables.perm.ravel()]
     return viewer_arrays(pts[occ], col[occ], scaling_factor)
+
+
+WIRE_K_BLOCKS = 512  # sub-blocks with any occupied voxel (rig: ~263)
+WIRE_K_VOXELS = 98304  # occupied-voxel colour slots (rig: ~57k)
+
+
+def pack_blocked_outputs(occ_b: torch.Tensor, col_b: torch.Tensor,
+                         k_blocks: int = None, k_voxels: int = None):
+    """The viewer wire's compression of blocked carve outputs, on their
+    device with no wait for the host.
+
+    Occupancy → the bitmaps (8 voxels a byte, little-endian) of the first
+    ``k_blocks`` sub-blocks that hold an occupied voxel, with their ids;
+    colours → the occupied voxels' BGR in ascending blocked order (the
+    bitmaps' bit order, so the decoder needs no voxel index), ``k_voxels``
+    rows.  Past the counts, ``ids`` repeat the last sub-block (a clipped
+    ``searchsorted``) and colour rows repeat voxel 0's (zero past the
+    grid), as in the JAX package.  Both capacities default to the module's
+    ``WIRE_K_BLOCKS`` and ``WIRE_K_VOXELS``, read at the call.
+
+    Returns ``(packed_k (k_blocks, BV/8) u8, ids (k_blocks,) i32, n_blocks
+    () i32, n_vox () i32, cols (k_voxels, 3) u8, overflow () bool)``;
+    ``overflow`` says that a count exceeds its capacity, and the caller
+    then takes the uncompressed outputs."""
+    k_blocks = WIRE_K_BLOCKS if k_blocks is None else k_blocks
+    k_voxels = WIRE_K_VOXELS if k_voxels is None else k_voxels
+    nsuper, nsub, BVv = occ_b.shape
+    dev = occ_b.device
+    nblk = nsuper * nsub
+    occ_u = (occ_b > 0).to(torch.uint8).reshape(nblk, BVv)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    packed = (occ_u.reshape(nblk, BVv // 8, 8) << shifts).sum(
+        -1, dtype=torch.uint8)
+    cs = torch.cumsum(occ_u.amax(1), 0, dtype=torch.int32)
+    n_blocks = cs[-1]
+    pos = torch.searchsorted(cs, torch.arange(1, k_blocks + 1,
+                                              dtype=torch.int32, device=dev))
+    ids = pos.clamp(0, nblk - 1).to(torch.int32)
+    packed_k = packed[ids.long()]
+
+    total = nblk * BVv
+    kv = min(k_voxels, total)
+    nblk128 = -(-total // mc._COMPACT_BLOCK)
+    vidx, n_vox = mc._compact_active(occ_u.reshape(-1) > 0, kv,
+                                     min(nblk128, kv))
+    vidx = vidx.long()
+    # colour c of voxel v sits at (v // BV)·3·BV + c·BV + v % BV
+    base = (vidx // BVv) * (3 * BVv) + vidx % BVv
+    chan = torch.arange(3, device=dev) * BVv
+    cols = col_b.reshape(-1)[base[:, None] + chan]  # (kv, 3) BGR
+    if kv < k_voxels:
+        cols = torch.cat([cols, cols.new_zeros((k_voxels - kv, 3))])
+    ovf = (n_blocks > k_blocks) | (n_vox > kv)
+    return packed_k, ids, n_blocks, n_vox, cols, ovf
+
+
+def encode_wire(packed_k, ids, n_blocks, n_vox, cols, any_ovf):
+    """One u8 buffer ``[any_ovf, n_blocks, n_vox i32][ids i32·k_blocks]
+    [packed_k][cols]``, integers little-endian: one download a frame."""
+    head = torch.stack([any_ovf.to(torch.int32), n_blocks.to(torch.int32),
+                        n_vox.to(torch.int32)]).view(torch.uint8)
+    return torch.cat([head, ids.to(torch.int32).view(torch.uint8),
+                      packed_k.reshape(-1), cols.reshape(-1)])
+
+
+def decode_wire(wire_host, k_blocks: int = None, k_voxels: int = None,
+                total_voxels: int = None):
+    """Host inverse of :func:`encode_wire` → (any_ovf, n_blocks, n_vox,
+    ids, packed_k, cols) numpy views.  ``total_voxels`` (the grid's voxel
+    count) clamps ``k_voxels`` as the encoder does on small grids."""
+    k_blocks = WIRE_K_BLOCKS if k_blocks is None else k_blocks
+    k_voxels = WIRE_K_VOXELS if k_voxels is None else k_voxels
+    if total_voxels is not None:
+        k_voxels = min(k_voxels, total_voxels)
+    buf = to_host(wire_host)
+    any_ovf, n_blocks, n_vox = np.frombuffer(buf[:12].tobytes(), np.int32)
+    o = 12
+    ids = np.frombuffer(buf[o:o + 4 * k_blocks].tobytes(), np.int32)
+    o += 4 * k_blocks
+    nb = k_blocks * (BV // 8)
+    packed_k = buf[o:o + nb].reshape(k_blocks, BV // 8)
+    o += nb
+    cols = buf[o:o + k_voxels * 3].reshape(k_voxels, 3)
+    return int(any_ovf), int(n_blocks), int(n_vox), ids, packed_k, cols
+
+
+def viewer_arrays_from_packed(packed_k, ids, n_blocks, n_vox, cols,
+                              tables: BlockTables, grid: GridConfig,
+                              scaling_factor: float = 64.0):
+    """Host unpack of :func:`pack_blocked_outputs` into the viewer contract:
+    the same rows as :func:`compact_voxels_blocked` (blocked order)."""
+    packed_k, ids, cols = to_host(packed_k), to_host(ids), to_host(cols)
+    n_blocks, n_vox = int(n_blocks), int(n_vox)
+    bits = np.unpackbits(packed_k[:n_blocks].reshape(-1),
+                         bitorder="little").astype(bool)
+    vox = (ids[:n_blocks, None].astype(np.int64) * BV
+           + np.arange(BV, dtype=np.int64)[None, :]).reshape(-1)[bits]
+    if len(vox) != n_vox:
+        raise ValueError(f"corrupt wire: {len(vox)} voxels in the bitmaps, "
+                         f"{n_vox} colours")
+    pts = _blocked_points_cache(grid, tables.sub_shape, tables.sup_shape)
+    return viewer_arrays(pts[vox], cols[:n_vox], scaling_factor)
+
+
+@functools.lru_cache(maxsize=4)
+def _blocked_points_cache(grid: GridConfig, sub_shape, sup_shape):
+    """The grid's voxel points in blocked order, truncated and in f32
+    (integer mm at the reference's grid steps, so exact): what
+    :func:`viewer_arrays_from_packed` gathers from every frame."""
+    perm, _ = _blocked_permutation(grid.shape, sub_shape, sup_shape)
+    return np.trunc(grid.voxel_points()[perm.ravel()]).astype(np.float32)

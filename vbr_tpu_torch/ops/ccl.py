@@ -29,6 +29,8 @@ inner_threshold, and filled otherwise.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -195,6 +197,17 @@ def _border_indices(H, W, Hp, Wp) -> np.ndarray:
     return np.unique(np.concatenate(bidx)).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_constants(H, W, Hp, Wp, fig_thresholds, inner_thresholds, dev):
+    """The border pixels' indices and the per-image thresholds of
+    :func:`clean_masks_batched` on ``dev``, made once per shape and
+    thresholds: a copy from the host in every call would make the host wait
+    for the card."""
+    return (torch.from_numpy(_border_indices(H, W, Hp, Wp)).to(dev),
+            torch.tensor(fig_thresholds, dtype=torch.float32, device=dev),
+            torch.tensor(inner_thresholds, dtype=torch.float32, device=dev))
+
+
 def clean_masks_batched(
     raw: torch.Tensor,  # (C, H, W) u8 {0, 255}
     fig_thresholds,
@@ -222,12 +235,12 @@ def clean_masks_batched(
     comb, _ = label_components_combined(fg_p, max_iters=max_iters)
     labs_f = torch.where(fg_p, comb, BIG).reshape(C, -1)
     labs_b = torch.where(bg_p, comb, BIG).reshape(C, -1)
-    bidx = torch.from_numpy(_border_indices(H, W, Hp, Wp)).to(dev)
+    bidx, fig, inner = _device_constants(
+        H, W, Hp, Wp, tuple(map(float, fig_thresholds)),
+        tuple(map(float, inner_thresholds)), dev)
     k_keep = min(16, kf)
     k_hole = min(64, kb)
     k_touch = min(32, k_hole)
-    fig = torch.tensor(fig_thresholds, dtype=torch.float32, device=dev)
-    inner = torch.tensor(inner_thresholds, dtype=torch.float32, device=dev)
     out_p, overflow = _clean_stats(
         labs_f, labs_b, fg_p, bg_p, fig, inner, bidx=bidx, kf=kf, kb=kb,
         k_runs=k_runs, k_keep=k_keep, k_hole=k_hole, k_touch=k_touch,

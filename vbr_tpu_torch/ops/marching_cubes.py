@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vbr_tpu_torch import native
 from vbr_tpu_torch.ops.carve import to_host
 from vbr_tpu_torch.utils.device import resolve_device
 
@@ -938,7 +939,9 @@ def triangles_from_wire(idx, cfg, n_active, volume_shape,
                         level: float = 0.5) -> np.ndarray:
     """Host emission from a :func:`surface_wire_program` result: the
     generated-table math of ``extract_mesh``'s binary fast path, so the
-    triangle soup is bit-identical to it."""
+    triangle soup is bit-identical to it.  The native tail
+    (``native.mc_emit``) emits; :func:`_triangles_from_wire_numpy` is its
+    plain reference."""
     tv, tvalid = _binary_emit_table(algorithm, ambiguity, float(level))
     idx = to_host(idx)
     # a truncated result (n_active > capacity) must not over-read; the
@@ -947,13 +950,15 @@ def triangles_from_wire(idx, cfg, n_active, volume_shape,
     ny1, nz1 = volume_shape[1] - 1, volume_shape[2] - 1
     if n == 0:
         return np.zeros((0, 3, 3), np.float32)
-    return _triangles_from_wire_numpy(idx, to_host(cfg), n, tv, tvalid, ny1,
-                                      nz1, origin, spacing)
+    T = tv.shape[1]
+    return native.mc_emit(idx, to_host(cfg), n, tv.reshape(256, T, 9),
+                          tvalid, ny1, nz1, origin, spacing).reshape(-1, 3, 3)
 
 
 def _triangles_from_wire_numpy(idx, cfg, n, tv, tvalid, ny1, nz1,
                                origin, spacing):
-    """numpy tail of :func:`triangles_from_wire`."""
+    """numpy tail of :func:`triangles_from_wire`: the native tail's plain
+    reference."""
     idx = idx[:n].astype(np.int64)
     cfg = cfg[:n]
     base = np.stack(

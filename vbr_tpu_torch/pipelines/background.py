@@ -6,10 +6,11 @@ Counterpart of ``vbr_tpu/pipelines/background.py``:
 ``stack_states``, ``stack_frozen``
 (per-camera states → one prefix-compressed stacked state),
 ``raw_masks_batched_fz`` (HSV + compressed frozen apply + per-camera
-pre-morphology), ``finalize_masks_batched`` (per-camera post-morphology +
-binarize) and ``extract_foreground_mask`` (one camera's whole mask stage,
-with its three cleanup routes).  The ROI and YUV ingest variants are not
-ported yet.
+pre-morphology), its ROI form ``raw_masks_batched_fz_roi`` with
+``paste_rois`` (the windowed reduced-byte ingest),
+``finalize_masks_batched`` (per-camera post-morphology + binarize) and
+``extract_foreground_mask`` (one camera's whole mask stage, with its three
+cleanup routes).
 """
 
 from __future__ import annotations
@@ -103,9 +104,14 @@ def raw_masks_batched_fz(fz: gmm.FrozenMOGState, frames: torch.Tensor,
                          mask_params: Sequence, use_hsv: bool = True):
     """(C, H, W, 3) u8 BGR → (C, H, W) u8 raw masks with pre-morphology."""
     x = color_ops.bgr_to_hsv_u8(frames) if use_hsv else frames
-    raw = gmm.apply_frozen_compressed(fz, x)
+    return _pre_morphology(gmm.apply_frozen_compressed(fz, x), mask_params)
+
+
+def _pre_morphology(raw: torch.Tensor, mask_params: Sequence):
+    """Each camera's optional 3×3 opening and closing of (C, H, W) raw
+    masks."""
     out = []
-    for c in range(frames.shape[0]):
+    for c in range(raw.shape[0]):
         m, mp = raw[c], mask_params[c]
         if mp.opening_pre:
             m = morphology.opening(m, (3, 3))
@@ -113,6 +119,52 @@ def raw_masks_batched_fz(fz: gmm.FrozenMOGState, frames: torch.Tensor,
             m = morphology.closing(m, (3, 3))
         out.append(m)
     return torch.stack(out)
+
+
+def _window_origin(offset, size, image_hw):
+    """A window's (y0, x0) as Python ints, read as
+    ``jax.lax.dynamic_slice`` and ``dynamic_update_slice`` read their start
+    indices: a negative one counts from the end of its axis, then each is
+    clamped so that the window fits the image."""
+    return tuple(min(max(int(o) + (n if int(o) < 0 else 0), 0), n - s)
+                 for o, s, n in zip(offset, size, image_hw))
+
+
+def raw_masks_batched_fz_roi(fz: gmm.FrozenMOGState, rois: torch.Tensor,
+                             offsets, mask_params: Sequence,
+                             use_hsv: bool = True, *, image_hw):
+    """ROI form of :func:`raw_masks_batched_fz`: (C, RH, RW, 3) u8 BGR
+    windows at the host ``offsets`` (C, 2) ints [y0, x0] → (C, H, W) u8 raw
+    masks.  The frozen model is applied to each camera's state cut at its
+    window, the window's raw mask is pasted onto a zero (background) canvas,
+    and the pre-morphology runs on the whole frame; so where the window
+    holds every foreground pixel, the masks equal the full-frame stage's.
+    The offsets stay on the host (the tracker's numpy values): slicing with
+    them needs no device read."""
+    H, W = image_hw
+    C, RH, RW = rois.shape[:3]
+    x = color_ops.bgr_to_hsv_u8(rois) if use_hsv else rois
+    org = [_window_origin(offsets[c], (RH, RW), image_hw) for c in range(C)]
+    crop = gmm.FrozenMOGState(*(
+        torch.stack([a[c, y0:y0 + RH, x0:x0 + RW]
+                     for c, (y0, x0) in enumerate(org)])
+        for a in (fz.mean, fz.thr, fz.bcount)))
+    raw_roi = gmm.apply_frozen_compressed(crop, x)
+    raw = raw_roi.new_zeros((C, H, W))
+    for c, (y0, x0) in enumerate(org):
+        raw[c, y0:y0 + RH, x0:x0 + RW] = raw_roi[c]
+    return _pre_morphology(raw, mask_params)
+
+
+def paste_rois(rois: torch.Tensor, offsets, image_hw) -> torch.Tensor:
+    """(C, RH, RW, 3) windows + host (C, 2) origins → (C, H, W, 3) frames,
+    zero outside the windows: the colour frames of the ROI ingest."""
+    C, RH, RW = rois.shape[:3]
+    out = rois.new_zeros((C, *image_hw, rois.shape[-1]))
+    for c in range(C):
+        y0, x0 = _window_origin(offsets[c], (RH, RW), image_hw)
+        out[c, y0:y0 + RH, x0:x0 + RW] = rois[c]
+    return out
 
 
 def finalize_masks_batched(cleaned: torch.Tensor,
