@@ -123,6 +123,29 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      ingest queued up to its download under
      ``torch.cuda.set_sync_debug_mode("error")``.
 
+ 18. large grids: at phase 3's and phase 14's 128³ grids
+     ``build_block_tables(accelerate=True)`` (f32 projection on the card,
+     f64 host recheck of the boundary band) equal to their f64 host tables
+     and ``build_projection_tables(accelerate=True)`` to
+     ``accelerate=False``, both builds timed, the suspicious voxels per
+     camera; the rig at 256³ (the model's own device build, equal to the
+     same torch code on the CPU and, on two superblock x-slabs, to the f64
+     projection; its peak memory and suspicious share):
+     ``process_frame_fast`` over its 8 frames equal to the CPU and frame 0
+     to ``carve_from_tables`` on the accelerated projection tables, K1
+     bit-equal to its plain version with its time and bound,
+     ``process_frames_offline`` over 8 frames equal to the CPU with K4
+     bit-equal, timed and bounded, ``process_frame_surface`` on two frames
+     equal to the CPU, with the path each took; an 8-camera synthetic rig
+     at 512³: ``build_block_tables(accelerate=None)`` takes the device build
+     (its 2048-voxel spot check, then 2^20 voxels per camera re-projected
+     in f64), K1's direct route through ``carve_blocked`` equal to
+     ``carve_from_tables`` on the accelerated projection tables,
+     ``Reconstructor(use_tables=False)`` (``carve_fused``) within 0.01 % of
+     it, ms per frame of the three carves and peak memory; and
+     ``Reconstructor(use_tables=False)`` on the rig at 128³, card equal to
+     CPU and within 0.01 % of the table path.
+
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
 reading, which leaves no dirty lines), and phase 2 prints what an empty
@@ -138,6 +161,7 @@ from __future__ import annotations
 
 import ctypes
 from concurrent.futures import ThreadPoolExecutor
+import dataclasses
 import json
 import os
 import re
@@ -886,6 +910,57 @@ def mask_bytes_read(torch, cb, pk, blocks, W):
     valid = row != cb.INVALID_ROW
     return sum(int(torch.unique(lin[:, c][valid[:, c]]).numel())
                for c in range(p.shape[1]))
+
+
+def k1_work(torch, cb, btab, active, full, masks, occ_b):
+    """What one K1 launch on ``masks`` must move and compute, and the
+    bound that gives: the flags, the words of the counted sub-blocks (and
+    the colour camera's of the full ones), the mask bytes the counted
+    sub-blocks' pixels address, the colour frame's pixels of the occupied
+    voxels (the plain version's gather) and ``lcc`` there, and the outputs
+    (occupancy + 3 colour bytes per voxel) → namespace (bound, bound_by,
+    active fraction, text)."""
+    W = masks.shape[-1]
+    nblk, C = btab.nsuper * btab.nsub, btab.num_cameras
+    act, ful = active.bool(), full.bool()
+    n_compute, n_full = int((act & ~ful).sum()), int(ful.sum())
+    n_occ = int(occ_b.sum())
+    mask_bytes = mask_bytes_read(torch, cb, btab.pk, act & ~ful, W)
+    row_c = btab.pk[..., btab.color_camera, :] >> 10
+    lit = (occ_b > 0) & (row_c != cb.INVALID_ROW) & (btab.lcc >= 0)
+    colour_bytes = 3 * int(torch.unique((row_c * W + btab.lcc)[lit]).numel())
+    n_bytes = (8 * nblk + n_compute * C * cb.BV * 4 + n_full * cb.BV * 4
+               + n_occ * 4 + mask_bytes + colour_bytes + nblk * cb.BV * 4)
+    n_ops = n_compute * cb.BV * C * 8  # decode, compare, add per view
+    b, by = bound(n_bytes, n_ops)
+    active_fraction = float(act.float().mean())
+    return SimpleNamespace(
+        bound=b, bound_by=by, active=active_fraction,
+        text=(f"bound {b:.5f} ms ({by}: {n_bytes} B, {n_ops} ops); active "
+              f"{active_fraction:.4f} of {nblk} sub-blocks, full {n_full}, "
+              f"occupied voxels {n_occ}; mask bytes read {mask_bytes} of "
+              f"{masks.numel()}, colour bytes {colour_bytes}"))
+
+
+def k4_work(torch, cb, btab, active, full, masks, occ):
+    """K4's counterpart of :func:`k1_work` for a chunk of (NF, C, H, W)
+    masks: flags, the counted sub-blocks' words, the mask bytes they
+    address in every frame, the occupancy out."""
+    NF, W = masks.shape[0], masks.shape[-1]
+    nblk, C = btab.nsuper * btab.nsub, btab.num_cameras
+    act, ful = active.bool(), full.bool()
+    n_compute = int((act & ~ful).sum())
+    mask_bytes = NF * mask_bytes_read(torch, cb, btab.pk, act & ~ful, W)
+    n_bytes = 8 * nblk + n_compute * C * cb.BV * 4 + mask_bytes + occ.numel()
+    n_ops = n_compute * cb.BV * C * (5 + 2 * NF)
+    b, by = bound(n_bytes, n_ops)
+    return SimpleNamespace(
+        bound=b, bound_by=by, active=float(act.float().mean()),
+        text=(f"bound {b:.5f} ms ({by}: {n_bytes} B, {n_ops} ops); active "
+              f"on the union {float(act.float().mean()):.4f} of {nblk} "
+              f"sub-blocks, full on the intersection {int(ful.sum())}, "
+              f"counted {n_compute}; mask bytes they address {mask_bytes} "
+              f"of {masks.numel()}"))
 
 
 def read_png_gray(path):
@@ -1782,18 +1857,440 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
     return report
 
 
+LARGE_EDGES = (256, 512)  # phase 18: the rig's steps; the 8-camera carve
+STRETCH_CAMERAS = 8
+STRETCH_SPOT = 1 << 20  # voxels per camera re-projected in f64 at 512³
+TABLE_FIELDS = ("pk", "lcc", "vorig", "uorig", "allv", "ry", "rx")
+
+
+def timed_s(fn, torch, dev):
+    """(fn(), host seconds to a synchronised result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb(torch, dev):
+    """Peak device memory since :func:`reset_peak` (GB), None on the CPU."""
+    return (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else None)
+
+
+def tables_equal(torch, a, b):
+    """Two ``BlockTables``, on any devices, equal in every field."""
+    return (all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+                for f in TABLE_FIELDS)
+            and (a.WH, a.WC, a.Hp, a.Wc, a.n_fcells_hw)
+            == (b.WH, b.WC, b.Hp, b.Wc, b.n_fcells_hw))
+
+
+def tables_on_cpu(btab):
+    return dataclasses.replace(btab, **{f: getattr(btab, f).cpu()
+                                        for f in TABLE_FIELDS})
+
+
+def suspicious_counts(torch, carve, cams, grid, image_hw, dev):
+    """Per camera, the voxels that the device builds re-project in f64."""
+    xs, ys, zs = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in grid.axis_ranges())
+    planes = carve._slab_planes(grid)
+    return [sum(int(carve._proj_suspicion_chunk(
+        xs[x0:x0 + planes], ys, zs, *carve._camera_f32(cp, dev),
+        image_hw)[3].sum()) for x0 in range(0, grid.nx, planes))
+        for cp in cams]
+
+
+def f64_words(cb, carve, cams, grid, image_hw, gidx):
+    """(len(gidx), C) packed words of the canonical voxels ``gidx`` from the
+    f64 host projection."""
+    axes = grid.axis_ranges()
+    out = []
+    for cp in cams:
+        iy, ix, valid = carve._exact_f64(cp, axes, gidx, image_hw)
+        out.append(cb._pk_words(np.where(valid, iy, cb.INVALID_ROW), ix))
+    return np.stack(out, axis=1)
+
+
+def large_grid_phase(torch, dev, kernels, flush, model, rig, image_hw,
+                     edges=LARGE_EDGES):
+    """Phase 18: large grids (see ``run``) on ``model`` (the synthetic rig
+    at phase 3's grid), ``rig`` (phase 14's models and frames) and a
+    synthetic 8-camera rig; ``edges`` are the grid edges of the rig's
+    steps (256) and of the 8-camera carve (512).  Returns its report."""
+    from vbr_tpu_torch.models.visual_hull import VisualHull
+    from vbr_tpu_torch.ops import carve
+    from vbr_tpu_torch.ops import carve_blocked as cb
+    from vbr_tpu_torch.ops import marching_cubes as mc
+    from vbr_tpu_torch.pipelines.reconstruction import Reconstructor
+    from vbr_tpu_torch.utils.config import GridConfig, RigConfig
+    from vbr_tpu_torch.utils.synthetic import synthetic_rig
+
+    H, W = image_hw
+    edge, stretch = edges
+    report = {}
+
+    def launches(names=("carve_blocked", "ccl_combined", "carve_frames")):
+        return {k.source.stem: k.launches for k in kernels
+                if k.source.stem in names}
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
+
+    # -- [18a] the device builds against the f64 host tables --------------
+    builds = {}
+    for what, m in (("synthetic rig", model), ("rig", rig.model)):
+        cams, grid, ref = m.cameras, m.grid, m._btab
+        kw = dict(sub=ref.sub_shape, sup=ref.sup_shape,
+                  color_camera=ref.color_camera, device=dev)
+        dev_tab, dev_s = timed_s(lambda: cb.build_block_tables(
+            cams, grid, image_hw, accelerate=True, **kw), torch, dev)
+        _, host_s = timed_s(lambda: cb.build_block_tables(
+            cams, grid, image_hw, accelerate=False, **kw), torch, dev)
+        pt_dev, pt_dev_s = timed_s(lambda: carve.build_projection_tables(
+            cams, grid, image_hw, accelerate=True, device=dev), torch, dev)
+        pt_host, pt_host_s = timed_s(lambda: carve.build_projection_tables(
+            cams, grid, image_hw, accelerate=False, device=dev), torch, dev)
+        sus = suspicious_counts(torch, carve, cams, grid, image_hw, dev)
+        expect(tables_equal(torch, dev_tab, ref)
+               and torch.equal(pt_dev.valid, pt_host.valid)
+               and torch.equal(pt_dev.lin_idx, pt_host.lin_idx),
+               f"{what} at {grid.shape}: build_block_tables(accelerate=True) "
+               f"on {dev.type} equal to the f64 host tables of phase "
+               f"{3 if m is model else 14} (every field, WH {ref.WH}, WC "
+               f"{ref.WC}, Hp {ref.Hp}, Wc {ref.Wc}), "
+               "build_projection_tables(accelerate=True) to accelerate=False;"
+               f" blocked {dev_s:.3f} s against the host's {host_s:.3f} s, "
+               f"projection {pt_dev_s:.3f} s against {pt_host_s:.3f} s; "
+               f"suspicious voxels per camera {sus} of {grid.num_voxels}")
+        builds[what] = {"grid": list(grid.shape), "device_s": dev_s,
+                        "host_s": host_s, "projection_device_s": pt_dev_s,
+                        "projection_host_s": pt_host_s, "suspicious": sus}
+        del dev_tab, pt_dev, pt_host
+    report["builds"] = builds
+
+    # -- [18b] the rig's steps at edge³ -----------------------------------
+    print(f"  [18b] the rig at {edge}^3: build, live, offline, surface",
+          flush=True)
+    grid = GridConfig(nx=edge, ny=edge, nz=edge)
+    cams, frames = rig.model.cameras, rig.frames
+
+    def rig_model(src, d):
+        m = VisualHull(cams, grid, src.rig, src.mask_params, device=d)
+        m.bg_states, m.mog_params = src.bg_states, src.mog_params
+        m._ensure_fast_state()
+        return m
+
+    m = rig_model(rig.model, dev)
+    reset_peak(torch, dev)
+    btab, build_s = timed_s(m._ensure_btab, torch, dev)
+    build_peak = peak_gb(torch, dev)
+    side = "device" if grid.num_voxels >= cb.DEVICE_BUILD_VOXELS else "host"
+    kw = dict(sub=btab.sub_shape, sup=btab.sup_shape,
+              color_camera=btab.color_camera)
+    tab_cpu, cpu_s = timed_s(lambda: cb.build_block_tables_device(
+        cams, grid, image_hw, device="cpu", **kw), torch, dev)
+    gx, gy, gz = btab.nblocks
+    slabs_equal = []
+    for slab in (0, gx // 2):
+        rows = slice(slab * gy * gz, (slab + 1) * gy * gz)
+        got = btab.pk[rows].permute(2, 0, 1, 3).reshape(len(cams), -1)
+        want = f64_words(cb, carve, cams, grid, image_hw,
+                         btab.perm[rows].reshape(-1))
+        slabs_equal.append(np.array_equal(got.cpu().numpy(), want.T))
+    sus = suspicious_counts(torch, carve, cams, grid, image_hw, dev)
+    share = sum(sus) / (len(cams) * grid.num_voxels)
+    expect(tables_equal(torch, btab, tab_cpu) and all(slabs_equal),
+           f"the rig at {grid.shape}: the model's {side} build ({build_s:.2f}"
+           f" s, peak {build_peak} GB) equal to build_block_tables_device on "
+           f"the CPU ({cpu_s:.2f} s); superblock x-slabs 0 and {gx // 2} "
+           f"({len(cams)} x {btab.perm[:gy * gz].size} words each) equal to "
+           f"the f64 projection; suspicious share {share:.5f} ({sus})")
+    m_cpu = rig_model(rig.model_cpu, "cpu")
+    m_cpu._btab = tables_on_cpu(btab)
+    pt, pt_s = timed_s(lambda: m.tables, torch, dev)
+    m_cpu._tables = carve.ProjectionTables(pt.valid.cpu(), pt.lin_idx.cpu(),
+                                           pt.image_hw)
+    vt = m.rig.views_threshold
+
+    # the live step over the rig's frames
+    m.process_frame_fast(frames[0])  # warm-up
+    sync(torch, dev)
+    reset_counts()
+    outs, ms = [], []
+    for fr in frames:
+        out, s = timed_s(lambda: m.process_frame_fast(fr), torch, dev)
+        outs.append(out)
+        ms.append(s * 1e3)
+    live_launches = launches(("carve_blocked", "ccl_combined"))
+    live_ms = float(np.median(ms))
+    t0 = time.perf_counter()
+    same = [all(torch.equal(a.cpu(), b) for a, b in zip(
+        out, m_cpu.process_frame_fast(fr))) for out, fr in zip(outs, frames)]
+    cpu_live_s = time.perf_counter() - t0
+    occ_t, col_t = m.process_frame(frames[0])
+    occ0, col0 = outs[0]
+    n_occ = [int(o.sum()) for o, _ in outs]
+    expect(all(same) and torch.equal(occ_t, occ0)
+           and torch.equal(col_t[occ_t], col0[occ_t]) and min(n_occ) > 0
+           and (dev.type == "cpu" or min(live_launches.values())
+                >= len(frames)),
+           f"process_frame_fast at {grid.shape} over {len(frames)} rig "
+           f"frames: occupancy and colours equal on {dev.type} and on the "
+           f"CPU ({cpu_live_s:.1f} s), frame 0 equal to carve_from_tables on "
+           f"the accelerated projection tables (built in {pt_s:.2f} s); "
+           f"occupied voxels {n_occ}; launches {live_launches}")
+    masks0 = m.masks(frames[0])
+    active, full = cb.block_activity(masks0, vt, btab.allv, btab.ry, btab.rx)
+    k1_args = (btab.pk, btab.lcc, active, full, masks0,
+               m._frames(frames[0])[btab.color_camera].contiguous())
+    k1_kw = dict(color_camera=btab.color_camera, views_threshold=vt)
+    got = cb.carve_blocked_kernel(*k1_args, **k1_kw)
+    want = cb.carve_blocked_plain(*k1_args, **k1_kw)
+    k1_ms = timed_ms(lambda: cb.carve_blocked_kernel(*k1_args, **k1_kw),
+                     torch, dev, flush=flush)
+    k1 = k1_work(torch, cb, btab, active, full, masks0, got[0])
+    nblk = btab.nsuper * btab.nsub
+    k1_plan = cb.k1_launch_plan(nblk, len(cams)) if dev.type == "cuda" \
+        else None
+    expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+           f"K1 at {grid.shape} bit-equal to its plain version; "
+           f"process_frame_fast {live_ms:.3f} ms/frame (median of "
+           f"{len(frames)}); K1 {k1_ms:.4f} ms, {k1.text}; launch {k1_plan}")
+
+    # the offline path over OFFLINE_NF frames
+    seq = np.stack(frames[:OFFLINE_NF])
+    m.process_frames_offline(seq, frames_per_launch=OFFLINE_NF)  # warm-up
+    sync(torch, dev)
+    reset_counts()
+    (occ_off, col_off), off_s = timed_s(lambda: m.process_frames_offline(
+        seq, frames_per_launch=OFFLINE_NF), torch, dev)
+    off_launches = launches()
+    occ_off_c, col_off_c = m_cpu.process_frames_offline(
+        seq, frames_per_launch=OFFLINE_NF)
+    masks8 = torch.stack([m.masks(f) for f in seq])
+    active8, full8 = cb.chunk_activity(masks8, btab, vt)
+    got4 = cb.carve_frames_kernel(btab.pk, active8, full8, masks8,
+                                  views_threshold=vt)
+    want4 = cb.carve_frames_plain(btab.pk, active8, full8, masks8,
+                                  views_threshold=vt)
+    k4_ms = timed_ms(lambda: cb.carve_frames_kernel(
+        btab.pk, active8, full8, masks8, views_threshold=vt), torch, dev,
+        flush=flush)
+    k4 = k4_work(torch, cb, btab, active8, full8, masks8, got4)
+    offline_ms = off_s * 1e3 / len(seq)
+    expect(np.array_equal(occ_off, occ_off_c)
+           and all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(col_off, col_off_c))
+           and torch.equal(got4, want4)
+           and (dev.type == "cpu" or off_launches["carve_frames"] >= 1),
+           f"process_frames_offline at {grid.shape} over {len(seq)} frames: "
+           f"occupancy and colours equal on {dev.type} and on the CPU; K4 "
+           f"bit-equal to its plain version; {offline_ms:.3f} ms/frame; K4 "
+           f"{k4_ms:.4f} ms per chunk, {k4.text}; launches {off_launches}")
+    del masks8, active8, full8, got4, want4
+
+    # the surface step on two rig frames
+    surface = {}
+    for k in SURFACE_RIG_FRAMES:
+        fr = frames[k]
+        tris, occ, col = m.process_frame_surface(
+            fr, *SURFACE_PAIR, capacity=SURFACE_CAPACITY)
+        tris_c, occ_c, col_c = m_cpu.process_frame_surface(
+            fr, *SURFACE_PAIR, capacity=SURFACE_CAPACITY)
+        n_rep = int(mc.surface_program(
+            occ.reshape(grid.shape), algorithm=SURFACE_PAIR[0],
+            ambiguity=SURFACE_PAIR[1], capacity=SURFACE_CAPACITY)[2])
+        path = "extract_mesh" if n_rep > SURFACE_CAPACITY else "device"
+
+        def surface_step(fr=fr):
+            m.process_frame_surface(fr, *SURFACE_PAIR,
+                                    capacity=SURFACE_CAPACITY)
+            sync(torch, dev)
+
+        surf_ms = timed_ms(surface_step, torch, dev, reps=3)
+        expect(np.array_equal(tris, tris_c) and len(tris) > 0
+               and torch.equal(occ.cpu(), occ_c)
+               and torch.equal(col.cpu(), col_c),
+               f"process_frame_surface{SURFACE_PAIR} at {grid.shape} on rig "
+               f"frame {k}: triangles, occupancy and colours equal on "
+               f"{dev.type} and on the CPU; {len(tris)} triangles, "
+               f"{n_rep} active cells reported (capacity "
+               f"{SURFACE_CAPACITY}): path {path}; {surf_ms:.3f} ms/frame "
+               "(median of 3)")
+        surface[f"rig {k}"] = {"path": path, "n_reported": n_rep,
+                               "triangles": len(tris), "ms": surf_ms}
+    report["rig"] = {
+        "grid": list(grid.shape), "build": side, "build_s": build_s,
+        "build_peak_gb": build_peak, "cpu_build_s": cpu_s,
+        "suspicious_share": share, "projection_tables_s": pt_s,
+        "process_frame_fast_ms": live_ms, "live_launches": live_launches,
+        "k1_ms": k1_ms, "k1_bound_ms": k1.bound, "k1_bound_by": k1.bound_by,
+        "k1_active": k1.active, "k1_launch": k1_plan,
+        "offline_ms_per_frame": offline_ms, "offline_launches": off_launches,
+        "k4_ms": k4_ms, "k4_bound_ms": k4.bound, "k4_bound_by": k4.bound_by,
+        "surface": surface}
+    del m, m_cpu, btab, tab_cpu, pt, outs, occ_t, col_t, got, want, k1_args
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- [18c] the 8-camera carve at stretch³ -----------------------------
+    print(f"  [18c] {STRETCH_CAMERAS} cameras at {stretch}^3: build, "
+          "blocked, table and fused carves", flush=True)
+    cams8, masks_np, frames_np = synthetic_rig(num_cameras=STRETCH_CAMERAS,
+                                               image_hw=image_hw)
+    grid = GridConfig(nx=stretch, ny=stretch, nz=stretch)
+    # a voxel is kept where every camera sees it (as vbr_tpu's stretch
+    # bench carves this rig, and as the 4-camera rig keeps at 4 of 4)
+    rig8 = RigConfig(num_cameras=STRETCH_CAMERAS, image_height=H,
+                     image_width=W, views_threshold=STRETCH_CAMERAS)
+    picked = []
+    real_build = cb.build_block_tables_device
+    cb.build_block_tables_device = (
+        lambda *a, **k: picked.append("device") or real_build(*a, **k))
+    try:
+        reset_peak(torch, dev)
+        btab, build_s = timed_s(lambda: cb.build_block_tables(
+            cams8, grid, image_hw, accelerate=None, device=dev), torch, dev)
+        build_peak = peak_gb(torch, dev)
+    finally:
+        cb.build_block_tables_device = real_build
+    side = "device" if grid.num_voxels >= cb.DEVICE_BUILD_VOXELS else "host"
+    rng = np.random.default_rng(SEED + 18)
+    M = min(STRETCH_SPOT, grid.num_voxels)
+    at = [rng.integers(0, n, M) for n in (btab.nsuper, btab.nsub, cb.BV)]
+    got = btab.pk[tuple(torch.from_numpy(a).to(dev) for a in at[:2])
+                  + (slice(None), torch.from_numpy(at[2]).to(dev))]
+    t0 = time.perf_counter()
+    want = f64_words(cb, carve, cams8, grid, image_hw,
+                     btab.perm[at[0], at[1], at[2]])
+    spot_s = time.perf_counter() - t0
+    expect((picked == ["device"]) == (side == "device")
+           and np.array_equal(got.cpu().numpy(), want),
+           f"build_block_tables(accelerate=None) at {grid.shape} x "
+           f"{STRETCH_CAMERAS} cameras took the {side} build ({build_s:.2f} "
+           f"s, peak {build_peak} GB); {M} random voxels per camera "
+           f"re-projected in f64 on the host ({spot_s:.1f} s): pk words "
+           "equal")
+    reset_peak(torch, dev)
+    pt, pt_s = timed_s(lambda: carve.build_projection_tables(
+        cams8, grid, image_hw, device=dev), torch, dev)
+    pt_peak = peak_gb(torch, dev)
+    masks_d = torch.from_numpy(masks_np).to(dev)
+    frames_d = torch.from_numpy(frames_np).to(dev)
+    image = frames_d[btab.color_camera].contiguous()
+    vt = rig8.views_threshold
+    reset_counts()
+    occ_b, col_b = cb.carve_blocked(masks_d, image, btab, views_threshold=vt)
+    sync(torch, dev)
+    carve_launches = launches(("carve_blocked",))
+    occ_t, col_t = carve.carve_from_tables(
+        masks_d, frames_d, pt.valid, pt.lin_idx, views_threshold=vt,
+        color_camera=rig8.color_camera)
+    nblk = btab.nsuper * btab.nsub
+    k1_plan = cb.k1_launch_plan(nblk, STRETCH_CAMERAS) \
+        if dev.type == "cuda" else None
+    expect(torch.equal(occ_b, occ_t) and torch.equal(col_b[occ_t],
+                                                     col_t[occ_t])
+           and 0 < int(occ_t.sum()) < grid.num_voxels
+           and (dev.type == "cpu" or carve_launches["carve_blocked"] == 1
+                and k1_plan["route"] == "direct"),
+           f"carve_blocked at {grid.shape} x {STRETCH_CAMERAS} cameras: "
+           "occupancy and colours of occupied voxels equal to "
+           "carve_from_tables on the accelerated projection tables "
+           f"({pt_s:.2f} s, peak {pt_peak} GB); {int(occ_t.sum())} occupied; "
+           f"launches {carve_launches}; K1 launch {k1_plan}")
+    del occ_b, col_b
+    reset_peak(torch, dev)
+    fused = Reconstructor(cams8, grid, rig8, use_tables=False, device=dev)
+    occ_f, col_f = fused.carve_frame(masks_d, frames_d)
+    sync(torch, dev)
+    fused_peak = peak_gb(torch, dev)
+    differ = int((occ_f != occ_t).sum())
+    expect(differ <= 1e-4 * grid.num_voxels,
+           f"Reconstructor(use_tables=False) at {grid.shape}: {differ} of "
+           f"{grid.num_voxels} voxels differ from the table path (peak "
+           f"{fused_peak} GB)")
+    del occ_f, col_f, occ_t, col_t
+    active, full = cb.block_activity(masks_d, vt, btab.allv, btab.ry, btab.rx)
+    k1_args = (btab.pk, btab.lcc, active, full, masks_d, image)
+    k1_kw = dict(color_camera=btab.color_camera, views_threshold=vt)
+    occ_k, _ = cb.carve_blocked_kernel(*k1_args, **k1_kw)
+    k1_ms = timed_ms(lambda: cb.carve_blocked_kernel(*k1_args, **k1_kw),
+                     torch, dev, reps=5, flush=flush)
+    k1 = k1_work(torch, cb, btab, active, full, masks_d, occ_k)
+    del occ_k
+    blocked_ms = timed_ms(lambda: cb.carve_blocked(
+        masks_d, image, btab, views_threshold=vt, layout="blocked"), torch,
+        dev, reps=5, flush=flush)
+    table_ms = timed_ms(lambda: carve.carve_from_tables(
+        masks_d, frames_d, pt.valid, pt.lin_idx, views_threshold=vt,
+        color_camera=rig8.color_camera), torch, dev, reps=5, flush=flush)
+    fused_ms = timed_ms(lambda: fused.carve_frame(masks_d, frames_d), torch,
+                        dev, reps=5, flush=flush)
+    print(f"  at {grid.shape} x {STRETCH_CAMERAS}: K1 {k1_ms:.4f} ms, "
+          f"{k1.text}; ms per frame: block_activity + K1 {blocked_ms:.3f}, "
+          f"table carve {table_ms:.3f}, fused carve {fused_ms:.3f}")
+    report["stretch"] = {
+        "grid": list(grid.shape), "cameras": STRETCH_CAMERAS, "build": side,
+        "build_s": build_s, "build_peak_gb": build_peak, "spot_voxels": M,
+        "spot_s": spot_s, "projection_tables_s": pt_s,
+        "projection_peak_gb": pt_peak, "fused_peak_gb": fused_peak,
+        "fused_differ": differ, "launches": carve_launches, "k1_ms": k1_ms,
+        "k1_bound_ms": k1.bound, "k1_bound_by": k1.bound_by,
+        "k1_active": k1.active, "k1_launch": k1_plan,
+        "blocked_ms": blocked_ms, "table_ms": table_ms, "fused_ms": fused_ms}
+    del btab, pt, fused, masks_d, frames_d, image, k1_args, active, full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- [18d] Reconstructor(use_tables=False) on the rig ------------------
+    grid = rig.model.grid
+    masks = np.where(rig_silhouettes(image_hw), 255, 0).astype(np.uint8)
+    fr = frames[0]
+    fused = {d: Reconstructor(cams, grid, rig.model.rig, use_tables=False,
+                              device=d) for d in (dev, "cpu")}
+    occ_f, col_f = fused[dev].carve_frame(masks, fr)
+    occ_c, col_c = fused["cpu"].carve_frame(masks, fr)
+    occ_t, _ = Reconstructor(cams, grid, rig.model.rig,
+                             device=dev).carve_frame(masks, fr)
+    masks_d = torch.from_numpy(masks).to(dev)
+    fr_d = torch.from_numpy(fr).to(dev)
+    fused_ms = timed_ms(lambda: fused[dev].carve_frame(masks_d, fr_d), torch,
+                        dev, flush=flush)
+    differ = int((occ_f != occ_t).sum())
+    expect(torch.equal(occ_f.cpu(), occ_c) and torch.equal(col_f.cpu(), col_c)
+           and differ <= 1e-4 * grid.num_voxels and int(occ_c.sum()) > 0,
+           f"Reconstructor(use_tables=False) at {grid.shape} on the rig: "
+           f"occupancy and colours equal on {dev.type} and on the CPU; "
+           f"{differ} voxels differ from use_tables=True; "
+           f"{fused_ms:.3f} ms/frame")
+    report["rig_fused"] = {"grid": list(grid.shape), "differ": differ,
+                           "ms": fused_ms}
+    return report
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
-        seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW):
+        seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW,
+        large_edges=LARGE_EDGES):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
     on ``train_frames`` background frames per camera, holding the
     labelling kernels at the cap ``label_cap`` and on a ``label_large_hw``
-    image besides, and driving the viewer seam at the two
+    image besides, driving the viewer seam at the two
     ``set_voxel_positions`` sizes ``seam_sizes`` (the second not divisible
-    by 8·sup); returns the per-kernel report."""
+    by 8·sup) and the large grids at the edges ``large_edges`` (the rig's
+    steps, the 8-camera carve); returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -1884,31 +2381,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         lambda: cb.carve_blocked_kernel(*k1_args, **k1_kw), torch, dev,
         flush=flush_buf.zero_) if dev.type == "cuda" else None)
     nblk, C = btab.nsuper * btab.nsub, btab.num_cameras
-    act, ful = active.bool(), full.bool()
-    n_compute = int((act & ~ful).sum())
-    n_full = int(ful.sum())
-    n_occ = int(got[0].sum())
-    # masks: the bytes at the counted sub-blocks' pixels; colour frame:
-    # the pixels of the occupied voxels (the plain version's gather)
-    k1_mask_bytes = mask_bytes_read(torch, cb, btab.pk, act & ~ful, W)
-    row_c = btab.pk[..., btab.color_camera, :] >> 10
-    lit = (got[0] > 0) & (row_c != cb.INVALID_ROW) & (btab.lcc >= 0)
-    k1_colour_bytes = 3 * int(torch.unique((row_c * W + btab.lcc)[lit])
-                              .numel())
-    k1_bytes = (8 * nblk  # active + full flags
-                + n_compute * C * cb.BV * 4  # pk of computed blocks
-                + n_full * cb.BV * 4  # colour-camera pk of full blocks
-                + n_occ * 4  # lcc of occupied voxels
-                + k1_mask_bytes + k1_colour_bytes  # masks, colour frame
-                + nblk * cb.BV * 4)  # occ + 3 colour bytes per voxel
-    k1_ops = n_compute * cb.BV * C * 8  # decode, compare, add per view
-    k1_bound, k1_bound_by = bound(k1_bytes, k1_ops)
-    print(f"  active {float(act.float().mean()):.4f} of {nblk} sub-blocks, "
-          f"full {n_full}, occupied voxels {n_occ}; mask bytes read "
-          f"{k1_mask_bytes} of {masks.numel()}, colour bytes "
-          f"{k1_colour_bytes} of {H * W * 3}")
-    print(f"  K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
-          f"{k1_bound:.5f} ms ({k1_bound_by}: {k1_bytes} B, {k1_ops} ops)")
+    k1 = k1_work(torch, cb, btab, active, full, masks, got[0])
+    k1_bound, k1_bound_by = k1.bound, k1.bound_by
+    print(f"  K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, {k1.text}")
     if dev.type == "cuda":
         print(f"  K1 after a zeroing flush (dirty lines in L2): "
               f"{k1_ms_zeroing_flush:.4f} ms")
@@ -2164,21 +2639,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     k4_plain_ms = timed_ms(lambda: cb.carve_frames_plain(
         btab.pk, active8, full8, masks8, views_threshold=vt), torch, dev,
         reps=5, flush=flush)
-    act8, ful8 = active8.bool(), full8.bool()
-    n_compute8 = int((act8 & ~ful8).sum())
-    # masks: the bytes at the counted sub-blocks' pixels, in every frame
-    k4_mask_bytes = OFFLINE_NF * mask_bytes_read(torch, cb, btab.pk,
-                                                 act8 & ~ful8, W)
-    k4_bytes = (8 * nblk + n_compute8 * C * cb.BV * 4  # flags, pk
-                + k4_mask_bytes + got4.numel())  # masks in, occupancy out
-    k4_ops = n_compute8 * cb.BV * C * (5 + 2 * OFFLINE_NF)
-    k4_bound, k4_bound_by = bound(k4_bytes, k4_ops)
-    print(f"  active on the union {float(act8.float().mean()):.4f} of "
-          f"{nblk} sub-blocks, full on the intersection {int(ful8.sum())}, "
-          f"counted {n_compute8}; mask bytes they address {k4_mask_bytes} "
-          f"of {masks8.numel()}")
-    print(f"  K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
-          f"{k4_bound:.5f} ms ({k4_bound_by}: {k4_bytes} B, {k4_ops} ops)")
+    k4 = k4_work(torch, cb, btab, active8, full8, masks8, got4)
+    k4_bound, k4_bound_by = k4.bound, k4.bound_by
+    print(f"  K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, {k4.text}")
     k4_plan = (cb.k4_launch_plan(nblk, C, OFFLINE_NF) if dev.type == "cuda"
                else None)
     print(f"  K4 launch: {k4_plan}")
@@ -2297,6 +2760,16 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                           rig_models, roi_hw)
     print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
 
+    # -- [18] large grids --------------------------------------------------
+    print(f"[18] large grids: the device table builds, the rig at "
+          f"{large_edges[0]}^3, {STRETCH_CAMERAS} cameras at "
+          f"{large_edges[1]}^3, the fused carve", flush=True)
+    t0 = time.perf_counter()
+    large = large_grid_phase(torch, dev, kernels, flush, model, rig_models,
+                             image_hw, large_edges)
+    large["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 in {large['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -2345,6 +2818,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "seam": seam,
         "surface": surface,
         "viewer": viewer,
+        "large_grid": large,
     }
 
 

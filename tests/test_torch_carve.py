@@ -102,7 +102,7 @@ def test_projection_tables_match(rig):
     cams_j, cams_t, _, _ = rig
     ref = jcarve._build_tables_f64(cams_j, jconfig.GridConfig(**GRID), (H, W))
     got = tcarve.build_projection_tables(cams_t, tconfig.GridConfig(**GRID),
-                                         (H, W))
+                                         (H, W), device="cpu")
     np.testing.assert_array_equal(_t(got.valid), np.asarray(ref.valid))
     np.testing.assert_array_equal(_t(got.lin_idx), np.asarray(ref.lin_idx))
 
@@ -113,7 +113,7 @@ def test_block_tables_match(rig, sup):
     ref = jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
                                  sup=sup, accelerate=False)
     got = tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
-                                 sup=sup)
+                                 sup=sup, device="cpu")
     assert tcb.tables_static_tuple(got) == jcp.tables_static_tuple(ref)
     assert got.n_fcells_hw == ref.n_fcells_hw
     for name in ("pk", "lcc", "vorig", "uorig", "allv"):
@@ -130,7 +130,8 @@ def test_odd_grid_rejected(rig):
     _, cams_t, _, _ = rig
     with pytest.raises(ValueError, match="divisible"):
         tcb.build_block_tables(cams_t, tconfig.GridConfig(nx=20, ny=16,
-                                                          nz=16), (H, W))
+                                                          nz=16), (H, W),
+                               device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +139,8 @@ def tables(rig):
     cams_j, cams_t, _, _ = rig
     return (jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
                                    accelerate=False),
-            tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W)))
+            tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
+                                   device="cpu"))
 
 
 @pytest.mark.parametrize("thr", [4, 3])
@@ -173,7 +175,7 @@ def test_carve_from_tables_and_compaction_match(rig, tables):
     cams_j, cams_t, masks, frames = rig
     jtab = jcarve._build_tables_f64(cams_j, jconfig.GridConfig(**GRID), (H, W))
     ttab = tcarve.build_projection_tables(cams_t, tconfig.GridConfig(**GRID),
-                                          (H, W))
+                                          (H, W), device="cpu")
     occ_j, col_j = jcarve.carve_from_tables(
         jnp.asarray(masks), jnp.asarray(frames), jtab.valid, jtab.lin_idx,
         views_threshold=3, color_camera=1)
@@ -286,7 +288,7 @@ def test_plain_matches_pallas_on_the_card_check_inputs(rig, case):
     jt = jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
                                 accelerate=False, **kw)
     tt = tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
-                                **kw)
+                                **kw, device="cpu")
     image = frames[kw["color_camera"]]
     occ_j, col_j = jcp.carve_blocked(
         jnp.asarray(masks), jnp.asarray(image), jt, views_threshold=thr,

@@ -60,7 +60,7 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             k3_frames=2, label_large_hw=(16, 256),
                             label_cap=16,
                             seam_sizes=((32, 16, 32), (20, 8, 16)),
-                            roi_hw=(112, 128))
+                            roi_hw=(112, 128), large_edges=(64, 32))
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -182,6 +182,36 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "stream_surface(ingest='yuv420_roi', transfer='wire')",
                  "native.yuv420_pack byte-equal to the numpy pack",
                  "native.mc_emit bit-equal to the numpy tail"):
+        assert f"ok: {what}" in out
+    # phase 18: large grids, here at 64^3 for the rig and 32^3 x 8 cameras
+    large = report["large_grid"]
+    assert set(large["builds"]) == {"synthetic rig", "rig"}
+    assert all(sum(b["suspicious"]) > 0 for b in large["builds"].values())
+    assert large["rig"]["grid"] == [64, 64, 64]
+    assert large["rig"]["build"] == "host"  # the device build from 256^3
+    assert set(large["rig"]["surface"]) == {"rig 0", "rig 4"}
+    assert large["stretch"]["grid"] == [32, 32, 32]
+    assert large["stretch"]["cameras"] == 8
+    assert large["stretch"]["fused_differ"] <= 3
+    for what in ("synthetic rig at (32, 32, 32): build_block_tables("
+                 "accelerate=True) on cpu equal to the f64 host tables of "
+                 "phase 3", "rig at (32, 32, 32): build_block_tables("
+                 "accelerate=True) on cpu equal to the f64 host tables of "
+                 "phase 14", "the rig at (64, 64, 64): the model's host build",
+                 "process_frame_fast at (64, 64, 64) over 8 rig frames: "
+                 "occupancy and colours equal",
+                 "K1 at (64, 64, 64) bit-equal to its plain version",
+                 "process_frames_offline at (64, 64, 64) over 8 frames",
+                 "process_frame_surface('cubes', 'join') at (64, 64, 64) on "
+                 "rig frame 0", "process_frame_surface('cubes', 'join') at "
+                 "(64, 64, 64) on rig frame 4",
+                 "build_block_tables(accelerate=None) at (32, 32, 32) x 8 "
+                 "cameras took the host build",
+                 "carve_blocked at (32, 32, 32) x 8 cameras: occupancy and "
+                 "colours of occupied voxels equal to carve_from_tables",
+                 "Reconstructor(use_tables=False) at (32, 32, 32):",
+                 "Reconstructor(use_tables=False) at (32, 32, 32) on the "
+                 "rig: occupancy and colours equal on cpu and on the CPU"):
         assert f"ok: {what}" in out
 
 

@@ -56,9 +56,10 @@ def carve_rig():
     cams_t = tsyn.synthetic_cameras(C, image_hw=(H, W), f=80.0)
     jt = jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
                                 accelerate=False)
-    tt = tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W))
+    tt = tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
+                                device="cpu")
     ptab = tcarve.build_projection_tables(cams_t, tconfig.GridConfig(**GRID),
-                                          (H, W))
+                                          (H, W), device="cpu")
     rng = np.random.default_rng(21)
     masks = []
     for i in range(4):
@@ -212,7 +213,7 @@ def three_camera_tables():
     return (jcp.build_block_tables(cams_j, jconfig.GridConfig(**GRID), (H, W),
                                    accelerate=False, color_camera=0),
             tcb.build_block_tables(cams_t, tconfig.GridConfig(**GRID), (H, W),
-                                   color_camera=0))
+                                   color_camera=0, device="cpu"))
 
 
 @pytest.mark.parametrize("nf", [1, 5, 9])

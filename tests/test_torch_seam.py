@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vbr_tpu.apps import assignment_api as japi
@@ -193,9 +194,22 @@ def test_reconstructor_carves_as_the_reference():
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(rt.occupancy_volume(masks, frames),
                                   rj.occupancy_volume(masks, frames))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trec.Reconstructor(tcams, tconfig.GridConfig(**GRID32), rig_t,
-                           use_tables=False, device="cpu")
+    # the fused carve (no tables): equal to vbr_tpu's run op by op
+    rt_f = trec.Reconstructor(tcams, tconfig.GridConfig(**GRID32), rig_t,
+                              use_tables=False, device="cpu")
+    rj_f = jrec.Reconstructor(jcams, jconfig.GridConfig(**GRID32), rig_j,
+                              use_tables=False)
+    with jax.disable_jit():
+        occ_j, col_j = rj_f.carve_frame(masks, frames)
+        compact_j = rj_f.carve_frame_compact(masks, frames)
+        vol_j = rj_f.occupancy_volume(masks, frames)
+    occ_f, col_f = rt_f.carve_frame(masks, frames)
+    np.testing.assert_array_equal(occ_f.numpy(), np.asarray(occ_j))
+    np.testing.assert_array_equal(col_f.numpy(), np.asarray(col_j))
+    for a, b in zip(rt_f.carve_frame_compact(masks, frames), compact_j):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rt_f.occupancy_volume(masks, frames), vol_j)
+    assert int((occ_f != occ_t).sum()) <= 1e-4 * occ_t.numel()
 
 
 # -- projection-table cache -----------------------------------------------

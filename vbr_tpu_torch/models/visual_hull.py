@@ -112,8 +112,9 @@ class VisualHull:
 
     @property
     def tables(self) -> carve_ops.ProjectionTables:
-        """The f64 projection tables; with ``cache_dir`` loaded from (or
-        built into) the npz cache both packages share."""
+        """The projection tables, built on the model's device (exact: f32
+        projection, f64 recheck of the boundary band); with ``cache_dir``
+        loaded from (or built into) the npz cache both packages share."""
         if self._tables is None:
             if self.cache_dir:
                 self._tables = artifacts.cached_projection_tables(
@@ -121,7 +122,8 @@ class VisualHull:
                     self.device)
             else:
                 self._tables = carve_ops.build_projection_tables(
-                    self.cameras, self.grid, self.image_hw, self.device)
+                    self.cameras, self.grid, self.image_hw, accelerate=True,
+                    device=self.device)
         return self._tables
 
     def _frames(self, frames) -> torch.Tensor:
@@ -154,8 +156,10 @@ class VisualHull:
                 self.bg_states, p0, self.device)
 
     def _ensure_btab(self):
-        """The blocked carve tables, built at first call; None where the
-        grid (or the image) does not fit their geometry."""
+        """The blocked carve tables, built at first call (on the device from
+        256³, on the host below); None where the grid (or the image) does
+        not fit their geometry.  A device build that fails its f64 spot
+        check raises ``AssertionError``, which is not caught here."""
         if self._btab is _UNBUILT:
             sub = (8, 8, 8)
             sup = tuple(max(1, min(p, n // s))
@@ -163,7 +167,8 @@ class VisualHull:
             try:
                 self._btab = carve_blocked.build_block_tables(
                     self.cameras, self.grid, self.image_hw, sub=sub, sup=sup,
-                    color_camera=self.rig.color_camera, device=self.device,
+                    color_camera=self.rig.color_camera, accelerate=None,
+                    device=self.device,
                 )
             except ValueError:  # e.g. grid dims not divisible by 8·sup
                 self._btab = None

@@ -1,18 +1,27 @@
-"""Pinhole camera math in float64 numpy (host side).
+"""Pinhole camera math: float64 numpy on the host, and tensors.
 
 Counterpart of ``vbr_tpu/ops/camera.py`` (``rodrigues``,
 ``rodrigues_inverse``, ``distort_normalized``, ``project_points_rt``,
 ``project_points``), with the same operation order, so the f64 projection
 tables the carve reads are bit-identical to the JAX package's host build.
+
+``rodrigues``, ``distort_normalized``, ``project_points_rt`` and
+``project_points`` also take tensors (as ``vbr_tpu``'s take ``xp=jnp``):
+the f32 projection of the device table builds, one eager elementwise
+operation at a time (no matmul, so no TF32, and no fused multiply-add).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
-def rodrigues(rvec) -> np.ndarray:
-    """Axis-angle rotation vector (3,) → rotation matrix (3, 3)."""
+def rodrigues(rvec):
+    """Axis-angle rotation vector (3,) → rotation matrix (3, 3): f64 numpy,
+    or a tensor of ``rvec``'s dtype and device for a tensor ``rvec``."""
+    if isinstance(rvec, torch.Tensor):
+        return _rodrigues_tensor(rvec)
     rvec = np.asarray(rvec, dtype=np.float64).reshape(3)
     theta2 = rvec[0] * rvec[0] + rvec[1] * rvec[1] + rvec[2] * rvec[2]
     theta = np.sqrt(theta2)
@@ -31,6 +40,28 @@ def rodrigues(rvec) -> np.ndarray:
     R = eye + np.sin(theta) * K + (1.0 - np.cos(theta)) * (kkT - eye)
     R0 = eye + K * safe
     return np.where(theta > 1e-12, R, R0)
+
+
+def _rodrigues_tensor(rvec: torch.Tensor) -> torch.Tensor:
+    """:func:`rodrigues` on a tensor, elementwise (K² as kkᵀ − I)."""
+    rvec = rvec.reshape(3)
+    theta2 = rvec[0] * rvec[0] + rvec[1] * rvec[1] + rvec[2] * rvec[2]
+    theta = torch.sqrt(theta2)
+    safe = torch.where(theta > 0, theta, torch.ones_like(theta))
+    k = rvec / safe
+    zero = torch.zeros_like(theta)
+    K = torch.stack(
+        [
+            torch.stack([zero, -k[2], k[1]]),
+            torch.stack([k[2], zero, -k[0]]),
+            torch.stack([-k[1], k[0], zero]),
+        ]
+    )
+    eye = torch.eye(3, dtype=K.dtype, device=K.device)
+    kkT = k[:, None] * k[None, :]
+    R = eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (kkT - eye)
+    R0 = eye + K * safe
+    return torch.where(theta > 1e-12, R, R0)
 
 
 def rodrigues_inverse(R) -> np.ndarray:
@@ -72,12 +103,16 @@ def distort_normalized(xn, yn, dist):
     return xd, yd
 
 
-def project_points_rt(points, R, tvec, K, dist) -> np.ndarray:
+def project_points_rt(points, R, tvec, K, dist):
     """World points (..., 3) → pixels (..., 2) with a rotation matrix:
-    X_cam = R·X + t → perspective divide → distortion → K."""
-    points = np.asarray(points)
+    X_cam = R·X + t → perspective divide → distortion → K.  The rotation
+    is applied elementwise; tensors in give a tensor out."""
+    if isinstance(points, torch.Tensor):
+        tvec, stack = tvec.reshape(3), torch.stack
+    else:
+        points = np.asarray(points)
+        tvec, stack = np.reshape(tvec, (3,)), np.stack
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
-    tvec = np.reshape(tvec, (3,))
     Xx = R[0, 0] * x + R[0, 1] * y + R[0, 2] * z + tvec[0]
     Xy = R[1, 0] * x + R[1, 1] * y + R[1, 2] * z + tvec[1]
     Xz = R[2, 0] * x + R[2, 1] * y + R[2, 2] * z + tvec[2]
@@ -85,10 +120,13 @@ def project_points_rt(points, R, tvec, K, dist) -> np.ndarray:
     xd, yd = distort_normalized(Xx * inv_z, Xy * inv_z, dist)
     u = K[0, 0] * xd + K[0, 2]
     v = K[1, 1] * yd + K[1, 2]
-    return np.stack([u, v], axis=-1)
+    return stack([u, v], axis=-1)
 
 
-def project_points(points, rvec, tvec, K, dist) -> np.ndarray:
-    """World points (..., 3) → pixels (..., 2) from an axis-angle pose."""
+def project_points(points, rvec, tvec, K, dist):
+    """World points (..., 3) → pixels (..., 2) from an axis-angle pose
+    (all tensors, or host arrays)."""
     R = rodrigues(rvec)
-    return project_points_rt(points, R, np.asarray(tvec).reshape(3), K, dist)
+    if not isinstance(tvec, torch.Tensor):
+        tvec = np.asarray(tvec)
+    return project_points_rt(points, R, tvec.reshape(3), K, dist)

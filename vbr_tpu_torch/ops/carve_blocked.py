@@ -2,9 +2,15 @@
 
 Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
 
-  * host side — ``BlockTables``, ``_blocked_permutation``,
-    ``_check_block_geometry``, ``build_block_tables`` (the pure-f64 host
-    build) and ``tables_static_tuple``;
+  * the static tables — ``BlockTables``, ``_blocked_permutation``,
+    ``_check_block_geometry``, ``build_block_tables`` (the device build
+    ``build_block_tables_device`` from 2²⁴ voxels, the pure-f64 host build
+    below; both bit-identical to the f64 projection), the device build's
+    f64 spot check ``_spot_check`` and ``tables_static_tuple``; the
+    suspicion bands and the f64 recheck that both device builds share
+    (``_SUS_EPS``, ``_SUS_Z_EPS``, ``_proj_suspicion_chunk``,
+    ``_apply_corrections``, which ``vbr_tpu`` keeps in this module) are in
+    ``ops/carve.py``;
   * device side — ``block_activity`` (per-sub-block active/full flags from
     8×8 fine cells and the bilinear row/column span form, in float32
     matmuls whose 0/1 sums are exact), the carve kernel, and the
@@ -40,14 +46,19 @@ import torch
 from vbr_tpu_torch.ops import camera as cam_ops
 from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops._cuda import CudaKernel, check, ptr
-from vbr_tpu_torch.ops.carve import to_host, viewer_arrays
+from vbr_tpu_torch.ops.carve import (_exact_f64, _exact_slabs, to_host,
+                                     viewer_arrays)
 from vbr_tpu_torch.utils.config import CameraParams, GridConfig
+from vbr_tpu_torch.utils.device import resolve_device
 
 BV = 512  # voxels per sub-block (8³)
 WORD_BITS = 8  # columns per packed word in the geometry word ``pk``
 LANE = 128  # fine-cell span padding (kept from the JAX tables)
 FCELL = 8  # activity/full-test fine-cell size in pixels
 INVALID_ROW = 1023  # ``pk`` row of a projection outside the image
+# build_block_tables(accelerate=None) builds on the device from here (256³)
+DEVICE_BUILD_VOXELS = 1 << 24
+SPOT_CHECK_VOXELS = 2048  # voxels the device build re-projects in f64
 
 # both include csrc/carve_common.cuh (copy helpers, mask gather, the
 # persistent walk and its launch plan)
@@ -132,10 +143,31 @@ def build_block_tables(
     sub: Tuple[int, int, int] = (8, 8, 8),
     sup: Tuple[int, int, int] = (2, 2, 4),
     color_camera: int = 1,
-    device="cpu",
+    accelerate: bool | None = None,
+    device="cuda",
 ) -> BlockTables:
-    """All static carve tables from the float64 host projection (the
-    exactness oracle), moved to ``device``."""
+    """All static carve tables on ``device``, bit-identical to the pure
+    f64 host projection.
+
+    ``accelerate=True`` is :func:`build_block_tables_device` (f32
+    projection on ``device``, f64 host recheck of the suspicious voxels);
+    ``False`` the pure f64 host build (the oracle), moved to ``device``;
+    ``None`` takes the device build at ``DEVICE_BUILD_VOXELS`` voxels and
+    up (256³), where the host build takes minutes, and the host build
+    below."""
+    device = resolve_device(device)
+    if accelerate is None:
+        accelerate = grid.num_voxels >= DEVICE_BUILD_VOXELS
+    build = (build_block_tables_device if accelerate
+             else _build_block_tables_f64)
+    return build(cameras, grid, image_hw, sub=sub, sup=sup,
+                 color_camera=color_camera, device=device)
+
+
+def _build_block_tables_f64(cameras, grid, image_hw, sub, sup, color_camera,
+                            device) -> BlockTables:
+    """The pure f64 host build (the exactness oracle), moved to
+    ``device``."""
     H, W = image_hw
     C = len(cameras)
     _check_block_geometry(grid, sub, sup, image_hw)
@@ -165,9 +197,8 @@ def build_block_tables(
         valid_b = valid[perm]
         if c == color_camera:
             ix_color, valid_color = ix_b, valid_b
-        row_f = np.where(valid_b, iy_b, INVALID_ROW)
-        pk[:, :, c, :] = ((row_f << 10) | ((ix_b // WORD_BITS) << 3)
-                          | (ix_b % WORD_BITS)).astype(np.int32)
+        pk[:, :, c, :] = _pk_words(np.where(valid_b, iy_b, INVALID_ROW),
+                                   ix_b)
 
         allv &= valid_b.all(axis=2)
         any_v = valid_b.any(axis=2)
@@ -217,6 +248,153 @@ def build_block_tables(
         ry=dev(ry, torch.float32), rx=dev(rx, torch.float32),
         n_fcells_hw=(hf, wf), perm=perm,
     )
+
+
+def _pk_words(row, ix):
+    """The packed geometry word ``row<<10 | word<<3 | bit`` (numpy or
+    torch; ``row`` holds ``INVALID_ROW`` where the projection is
+    invalid)."""
+    return (row << 10) | ((ix // WORD_BITS) << 3) | (ix % WORD_BITS)
+
+
+def _spans(any_v, lo, hi, lanes):
+    """(nblk, lanes) f32: 1 on the fine cells ``lo // FCELL`` to
+    ``hi // FCELL`` of each block with a valid projection."""
+    return (any_v.reshape(-1, 1) & (lanes >= (lo // FCELL).reshape(-1, 1))
+            & (lanes <= (hi // FCELL).reshape(-1, 1))).to(torch.float32)
+
+
+def _extent(a, valid, any_v):
+    """Per block, the min and max of ``a`` over its valid voxels (0 and 0
+    for a block with none), as the host build takes them."""
+    lo = torch.where(valid, a, 10 ** 6).amin(dim=2)
+    hi = torch.where(valid, a, -1).amax(dim=2)
+    return torch.where(any_v, lo, 0), torch.where(any_v, hi, 0)
+
+
+def build_block_tables_device(
+    cameras: Sequence[CameraParams],
+    grid: GridConfig,
+    image_hw: Tuple[int, int],
+    sub: Tuple[int, int, int] = (8, 8, 8),
+    sup: Tuple[int, int, int] = (2, 2, 4),
+    color_camera: int = 1,
+    chunk_voxels: int = 1 << 24,
+    device="cuda",
+) -> BlockTables:
+    """All static carve tables built on ``device``, bit-identical to the
+    f64 host build.
+
+    The build is chunked over the outermost superblock axis (about
+    ``chunk_voxels`` voxels a chunk): a range of it is a contiguous slice of
+    the canonical voxels and of every (nsuper, ...) table, so no temporary
+    grows with the grid.  Per (camera, chunk): the f32 projection on the
+    device, an f64 host recheck of the suspicious voxels only
+    (``carve._exact_slabs``), then blocking (a reshape and permute), the
+    packed word, the row windows, the activity spans and the colour tables,
+    written into the preallocated tables by slice assignment.  Only the
+    window sizes WH and WC come to the host.  At the end
+    :func:`_spot_check` re-projects a sample of voxels in f64 and raises
+    ``AssertionError`` where a word differs (a rig outside the suspicion
+    bands' envelope: build with ``accelerate=False``)."""
+    device = resolve_device(device)
+    H, W = image_hw
+    C = len(cameras)
+    _check_block_geometry(grid, sub, sup, image_hw)
+    perm, nblocks = _blocked_permutation(grid.shape, sub, sup)
+    nsuper, nsub, _ = perm.shape
+    nblk = nsuper * nsub
+    hf, wf = -(-H // FCELL), -(-W // FCELL)
+    hf_p, wf_p = _ceil_to(hf, LANE), _ceil_to(wf, LANE)
+    gx, gy, gz = nblocks
+    x_per_gx = sub[0] * sup[0]  # canonical x-planes per superblock slab
+    cg = max(1, min(gx, chunk_voxels // (x_per_gx * grid.ny * grid.nz)))
+    while gx % cg:
+        cg -= 1
+    nsuper_c = cg * gy * gz  # superblocks per chunk
+
+    def to_blocked(a):  # a chunk's canonical voxels → (nsuper_c, nsub, BV)
+        return a.reshape(cg, sup[0], sub[0], gy, sup[1], sub[1], gz, sup[2],
+                         sub[2]).permute(0, 3, 6, 1, 4, 7, 2, 5, 8).reshape(
+            nsuper_c, nsub, BV)
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    pk, vorig = empty((nsuper, nsub, C, BV)), empty((nsuper, nsub, C))
+    lcc, uorig = empty((nsuper, nsub, BV)), empty((nsuper, nsub, 1))
+    ry = empty((C, nblk, hf_p), torch.float32)
+    rx = empty((C, nblk, wf_p), torch.float32)
+    allv = torch.ones((nsuper, nsub), dtype=torch.bool, device=device)
+    lanes_h = torch.arange(hf_p, dtype=torch.int32, device=device)
+    lanes_w = torch.arange(wf_p, dtype=torch.int32, device=device)
+    # the windows' sizes stay on the device until the end
+    need_wh = torch.tensor(8, dtype=torch.int32, device=device)
+    wc_need = torch.tensor(1, dtype=torch.int32, device=device)
+    for c, cp in enumerate(cameras):
+        for x0, iy, ix, valid in _exact_slabs(cp, grid, image_hw,
+                                              cg * x_per_gx, device):
+            so = x0 // x_per_gx * gy * gz
+            sup_rows = slice(so, so + nsuper_c)
+            blk_rows = slice(so * nsub, (so + nsuper_c) * nsub)
+            iy_b, ix_b, valid_b = to_blocked(iy), to_blocked(ix), to_blocked(
+                valid)
+            pk[sup_rows, :, c] = _pk_words(
+                torch.where(valid_b, iy_b, INVALID_ROW), ix_b)
+            allv[sup_rows] &= valid_b.all(dim=2)
+            any_v = valid_b.any(dim=2)
+            ymin, ymax = _extent(iy_b, valid_b, any_v)
+            xmin, xmax = _extent(ix_b, valid_b, any_v)
+            v0 = (ymin // 8) * 8
+            vorig[sup_rows, :, c] = v0
+            need_wh = torch.maximum(need_wh, (ymax - v0).max() + 1)
+            ry[c, blk_rows] = _spans(any_v, ymin, ymax, lanes_h)
+            rx[c, blk_rows] = _spans(any_v, xmin, xmax, lanes_w)
+            if c == color_camera:
+                lcc[sup_rows] = torch.where(valid_b, ix_b, -1)
+                u0 = (xmin // 64) * 64
+                uorig[sup_rows, :, 0] = u0
+                wc_need = torch.maximum(wc_need, (xmax - u0).max() + 1)
+    WH = _ceil_to(int(need_wh), 8)
+    WC = _ceil_to(int(wc_need), LANE)
+    _spot_check(pk, perm, cameras, grid, image_hw)
+    return BlockTables(
+        grid_shape=grid.shape, sub_shape=tuple(sub), sup_shape=tuple(sup),
+        nblocks=nblocks, nsuper=nsuper, nsub=nsub, num_cameras=C,
+        image_hw=(H, W), Hp=_ceil_to(H, 8) + WH,
+        n_words=_ceil_to(W, WORD_BITS) // WORD_BITS,
+        Wc=_ceil_to(W, LANE) + WC, WH=WH, WC=WC, color_camera=color_camera,
+        pk=pk, lcc=lcc, vorig=vorig, uorig=uorig,
+        allv=allv.to(torch.int32), ry=ry, rx=rx, n_fcells_hw=(hf, wf),
+        perm=perm,
+    )
+
+
+def _spot_check(pk, perm, cameras, grid, image_hw):
+    """Re-project ``SPOT_CHECK_VOXELS`` voxels (seeded, as ``vbr_tpu`` draws
+    them)
+    in f64 on the host and compare their ``pk`` words; raises
+    ``AssertionError`` at the first camera with a mismatch.  The device
+    build's exactness rests on the suspicion bands, set for the rig's image
+    scale and distortion; this guards rigs outside that envelope."""
+    rng = np.random.default_rng(0)
+    nsuper, nsub, _ = perm.shape
+    M = min(SPOT_CHECK_VOXELS, grid.num_voxels)
+    so, sb, sl = (rng.integers(0, n, M) for n in (nsuper, nsub, BV))
+    gidx = perm[so, sb, sl]
+    at = [torch.from_numpy(a).to(pk.device) for a in (so, sb, sl)]
+    got = pk[at[0], at[1], :, at[2]].cpu().numpy()  # (M, C)
+    axes = grid.axis_ranges()
+    for c, cp in enumerate(cameras):
+        iy, ix, valid = _exact_f64(cp, axes, gidx, image_hw)
+        bad = np.flatnonzero(
+            got[:, c] != _pk_words(np.where(valid, iy, INVALID_ROW), ix))
+        if bad.size:
+            raise AssertionError(
+                f"device table build failed the f64 spot check: camera {c}, "
+                f"{bad.size}/{M} sampled voxels differ (first at canonical "
+                f"index {int(gidx[bad[0]])}); this rig is outside the "
+                "suspicion bands' envelope: build with accelerate=False")
 
 
 def tables_static_tuple(tables: BlockTables):

@@ -1,10 +1,11 @@
-"""End-to-end visual-hull reconstruction on the table path, and the
-reference's viewer-seam helpers.
+"""End-to-end visual-hull reconstruction, and the reference's viewer-seam
+helpers.
 
 Counterpart of ``vbr_tpu/pipelines/reconstruction.py``: ``load_rig`` reads
-a rig's per-camera ``cam{i}/config.xml``; ``Reconstructor`` holds the f64
-projection tables of one rig and grid on a device and carves a frame's
-masks; ``generate_grid``, ``get_cam_positions`` and
+a rig's per-camera ``cam{i}/config.xml``; ``Reconstructor`` holds the
+projection tables of one rig and grid on a device (or, for grids whose
+tables would not fit, the cameras and voxel centres of the fused carve)
+and carves a frame's masks; ``generate_grid``, ``get_cam_positions`` and
 ``get_cam_rotation_matrices`` are three of the reference's four viewer
 functions (``apps/assignment_api.py`` adds ``set_voxel_positions``);
 ``write_ply`` dumps a point cloud.  Camera math is host f64 numpy with the
@@ -40,9 +41,10 @@ def load_rig(data_dir: str, num_cameras: int = 4) -> List[CameraParams]:
 
 
 class Reconstructor:
-    """Per-rig reconstruction on the table path: the f64 projection
-    tables on ``device``, and per frame the table carve
-    (``carve.carve_from_tables``)."""
+    """Per-rig reconstruction on ``device``: with ``use_tables`` the
+    projection tables (built on the device, exact) and per frame the table
+    carve (``carve.carve_from_tables``); without, no table, and per frame
+    the f32 fused carve (``carve.carve_fused``), for very large grids."""
 
     def __init__(
         self,
@@ -52,27 +54,32 @@ class Reconstructor:
         use_tables: bool = True,
         device="cuda",
     ):
-        if not use_tables:
-            raise NotImplementedError(
-                "use_tables=False needs carve.carve_fused, which is not "
-                "ported yet (ROADMAP.md, Queue 1 item 6)")
         self.device = resolve_device(device)
         self.cameras = list(cameras)
         self.grid = grid
         self.rig = rig
-        self.tables = carve_ops.build_projection_tables(
-            self.cameras, grid, (rig.image_height, rig.image_width),
-            self.device)
+        self.use_tables = use_tables
+        image_hw = (rig.image_height, rig.image_width)
+        if use_tables:
+            self.tables = carve_ops.build_projection_tables(
+                self.cameras, grid, image_hw, device=self.device)
+        else:
+            self.tables = None
+            self._pose = carve_ops._pose_arrays(self.cameras, self.device)
+            self._points = carve_ops.voxel_points_f32(grid, self.device)
 
     def carve_frame(self, masks, images):
         """masks (C, H, W) u8, images (C, H, W, 3) u8 BGR (numpy or torch)
         → (occupancy (N,) bool, colors (N, 3) u8) on the device."""
-        return carve_ops.carve_from_tables(
-            self._on_device(masks), self._on_device(images),
-            self.tables.valid, self.tables.lin_idx,
-            views_threshold=self.rig.views_threshold,
-            color_camera=self.rig.color_camera,
-        )
+        masks, images = self._on_device(masks), self._on_device(images)
+        kw = dict(views_threshold=self.rig.views_threshold,
+                  color_camera=self.rig.color_camera)
+        if self.use_tables:
+            return carve_ops.carve_from_tables(
+                masks, images, self.tables.valid, self.tables.lin_idx, **kw)
+        return carve_ops.carve_fused(
+            masks, images, self._points, *self._pose,
+            image_hw=(self.rig.image_height, self.rig.image_width), **kw)
 
     def carve_frame_compact(self, masks, images):
         """Carve + host compaction into viewer positions and colours."""

@@ -98,8 +98,8 @@ def cached_projection_tables(
     cached = load_projection_tables(path, key, device)
     if cached is not None:
         return cached
-    tables = carve_ops.build_projection_tables(cameras, grid,
-                                               tuple(image_hw), device)
+    tables = carve_ops.build_projection_tables(
+        cameras, grid, tuple(image_hw), accelerate=True, device=device)
     save_projection_tables(path, tables, key)
     return tables
 

@@ -94,8 +94,11 @@ def synthetic_rig(
     ramp_u = np.broadcast_to(np.arange(W, dtype=np.uint8), (H, W))
     ramp_v = np.broadcast_to(np.arange(H)[:, None] % 256,
                              (H, W)).astype(np.uint8)
+    # the third channel wraps past 255 (from the seventh camera on), as
+    # the JAX package's u8 cast did
     frames = np.stack(
-        [np.stack([ramp_u, ramp_v, np.full((H, W), 60 + 30 * i, np.uint8)], -1)
+        [np.stack([ramp_u, ramp_v,
+                   np.full((H, W), (60 + 30 * i) % 256, np.uint8)], -1)
          for i in range(num_cameras)]
     )
     return cams, masks, frames
