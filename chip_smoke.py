@@ -145,6 +145,22 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      it, ms per frame of the three carves and peak memory; and
      ``Reconstructor(use_tables=False)`` on the rig at 128³, card equal to
      CPU and within 0.01 % of the table path.
+ 19. intrinsic calibration on boards rendered on the card at the 134 real
+     poses of ``artifacts/intrinsics_run`` (each camera's fitted K and
+     distortion, 115 mm squares, 3×3 supersampling): the first f64 solve
+     and the first forward-mode derivative timed apart; the corners
+     method as ``cmd_calibrate`` runs it, ``detect_chessboard`` on every
+     view on the card and on the CPU (the same views found, corners within
+     1e-3 px; error against the true corners), ``calibrate_camera`` on the
+     detected corners and on the true ones plus 0.3 px of seeded noise,
+     card vs CPU within rtol 1e-6, ``discard_bad_image_points`` on cam1's
+     first 12 views on both, ``save_camera_config`` read back bit for bit;
+     the photometric method, ``calibrate_video_photometric`` (3000 steps)
+     per camera, fx and fy within 1 % of the truth, the radial curve closer
+     to it than the warm start's; on cam1 the loss and gradient at the warm
+     start and the first 50 Adam steps card vs CPU, the CUDA graph
+     bit-equal to the eager steps, ms per step of both, and ``fix_pp``
+     pinning cx and cy; the seconds of each part and the peak memory.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -2277,11 +2293,394 @@ def large_grid_phase(torch, dev, kernels, flush, model, rig, image_hw,
     return report
 
 
+CALIB_NPZ = "artifacts/intrinsics_run/cam{}/photometric_calib.npz"
+CALIB_HW = (486, 644)  # the intrinsics capture's frames
+CALIB_PATTERN = (8, 6)  # the real board's inner corners
+CALIB_SQUARE = 115.0  # its squares, mm
+CALIB_ITERS = 3000  # ``calibrate_video_photometric``'s default
+CALIB_NOISE_PX = 0.3
+RENDER_SS = 3  # supersampling per axis
+DISCARD_VIEWS = 12
+ADAM_STEPS = 50  # steps held card vs CPU and graph vs eager
+
+
+def calib_truth(cam, image_hw, views=None):
+    """(K, dist, rvecs, tvecs) of camera ``cam``'s fit in ``CALIB_NPZ``:
+    all its poses, or ``views`` of them spread evenly over the capture; K
+    scaled from ``CALIB_HW`` to ``image_hw`` (even sizes: ``vbr_tpu``'s
+    blob finder fails on a blob in the last row of an odd height)."""
+    with np.load(CALIB_NPZ.format(cam)) as d:
+        K, dist, rvecs, tvecs = (np.asarray(d[k], np.float64)
+                                 for k in ("K", "dist", "rvecs", "tvecs"))
+    K = K * np.array([[image_hw[1] / CALIB_HW[1]],
+                      [image_hw[0] / CALIB_HW[0]], [1.0]])
+    if views is not None and views < len(rvecs):  # spread over the capture
+        keep = np.linspace(0, len(rvecs) - 1, views).round().astype(int)
+        rvecs, tvecs = rvecs[keep], tvecs[keep]
+    return K, dist, rvecs, tvecs
+
+
+def render_boards(torch, dev, K, dist, rvecs, tvecs, image_hw,
+                  ss=RENDER_SS):
+    """(V, H, W, 3) u8 BGR frames of the board at each pose, rendered on
+    ``dev`` as ``tests/test_photometric_calibration.py::render_board``
+    renders one: per sub-pixel sample the f64 ray through the undistorted
+    pixel (25 fixed-point rounds) meets the board plane; black squares 25,
+    the board and its 0.7-square margin 235, beyond 90; the mean of
+    ``ss``² samples, truncated to u8."""
+    from vbr_tpu_torch.ops import camera as cam_ops
+
+    H, W = image_hw
+    nu, nv = CALIB_PATTERN[0] + 1, CALIB_PATTERN[1] + 1
+    f64 = dict(dtype=torch.float64, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(H, **f64), torch.arange(W, **f64),
+                            indexing="ij")
+    offs = (torch.arange(ss, **f64) + 0.5) / ss - 0.5
+    pix = torch.stack([
+        torch.stack([(xs + ox).reshape(-1), (ys + oy).reshape(-1)], -1)
+        for oy in offs for ox in offs])  # (ss², H·W, 2)
+    nrm = cam_ops.undistort_points(pix, torch.as_tensor(K, **f64),
+                                   torch.as_tensor(dist, **f64), num_iters=25)
+    d = torch.cat([nrm, torch.ones_like(nrm[..., :1])], -1)
+    out = []
+    for rv, tv in zip(rvecs, tvecs):
+        R = cam_ops.rodrigues(rv)
+        Rt_t = torch.as_tensor(R.T @ tv, **f64)
+        rd = d @ torch.as_tensor(R, **f64)  # rows: Rᵀd
+        lam = Rt_t[2] / rd[..., 2]
+        Xb = lam[..., None] * rd - Rt_t
+        u = Xb[..., 0] / CALIB_SQUARE + 1.0
+        v = Xb[..., 1] / CALIB_SQUARE + 1.0
+        inside = (u >= 0) & (u < nu) & (v >= 0) & (v < nv)
+        margin = (u >= -0.7) & (u < nu + 0.7) & (v >= -0.7) & (v < nv + 0.7)
+        black = (torch.floor(u).long() + torch.floor(v).long()) % 2 == 0
+        val = torch.where(inside & black, 25.0,
+                          torch.where(margin, 235.0, 90.0)).to(torch.float64)
+        g = (val.sum(0) / ss / ss).reshape(H, W).to(torch.uint8)
+        out.append(g[..., None].expand(H, W, 3))
+    return torch.stack(out).cpu().numpy()
+
+
+def true_corners(K, dist, rvecs, tvecs):
+    """(V, N, 2) f64 projections of the board's inner corners."""
+    from vbr_tpu_torch.ops import camera as cam_ops
+    from vbr_tpu_torch.pipelines import calibration as calib
+
+    obj = calib.chessboard_object_points(CALIB_PATTERN, CALIB_SQUARE)
+    return np.stack([cam_ops.project_points(obj, rv, tv, K, dist)
+                     for rv, tv in zip(rvecs, tvecs)])
+
+
+def board_radius(K, dist, rvecs, tvecs, image_hw):
+    """The largest normalized radius of a board corner inside the image:
+    the range over which the radial curve is determined."""
+    from vbr_tpu_torch.ops import camera as cam_ops
+    from vbr_tpu_torch.pipelines import calibration as calib
+
+    obj = calib.chessboard_object_points(CALIB_PATTERN, CALIB_SQUARE)
+    H, W = image_hw
+    rmax = 0.0
+    for rv, tv in zip(rvecs, tvecs):
+        Xc = obj @ cam_ops.rodrigues(rv).T + tv
+        r = np.hypot(Xc[:, 0] / Xc[:, 2], Xc[:, 1] / Xc[:, 2])
+        uv = cam_ops.project_points(obj, rv, tv, K, dist)
+        ok = ((uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+              & (uv[:, 1] < H))
+        if ok.any():
+            rmax = max(rmax, float(r[ok].max()))
+    return rmax
+
+
+def radial_curve_err_px(dist, dist_true, rmax, f):
+    """Largest pixel error of the radial distortion curve over r ≤ rmax
+    (``tests/test_photometric_calibration.py``'s measure)."""
+    r = np.linspace(0.0, rmax, 200)
+    r2 = r * r
+
+    def rad(d):
+        return d[0] * r2 + d[1] * r2 ** 2 + d[4] * r2 ** 3
+
+    return float(np.abs((rad(dist) - rad(dist_true)) * r * f).max())
+
+
+def rel_err(a, b):
+    """Largest |a − b| / |b| over the arrays' elements."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+
+
+def calib_rel_err(a, b):
+    """Largest relative difference of two ``CalibrationResult``s over K,
+    dist, poses, rms and per-view errors."""
+    return max(rel_err(a.K, b.K), rel_err(a.dist, b.dist),
+               rel_err(np.stack(a.rvecs), np.stack(b.rvecs)),
+               rel_err(np.stack(a.tvecs), np.stack(b.tvecs)),
+               rel_err(a.rms, b.rms),
+               rel_err(a.per_view_errors, b.per_view_errors))
+
+
+def calibration_phase(torch, dev, image_hw=CALIB_HW, views=None,
+                      iters=CALIB_ITERS, build_root="build"):
+    """Phase 19: intrinsic calibration (see ``run``) on boards rendered at
+    the real cameras and poses of ``CALIB_NPZ``, at ``image_hw`` (K
+    scaled), the first ``views`` poses per camera, ``iters`` Adam steps.
+    Returns its report."""
+    from vbr_tpu_torch.ops import color, corners
+    from vbr_tpu_torch.pipelines import calibration as calib
+    from vbr_tpu_torch.pipelines import photometric_calibration as pc
+    from vbr_tpu_torch.utils import xmlio
+
+    cpu = torch.device("cpu")
+    H, W = image_hw
+    t_phase = time.perf_counter()
+    reset_peak(torch, dev)
+    rep = {"image_hw": list(image_hw), "iters": iters, "cameras": {}}
+    rigs = {}
+    for cam in (1, 2, 3, 4):
+        K, dist, rvecs, tvecs = calib_truth(cam, image_hw, views)
+        frames, render_s = timed_s(lambda: render_boards(
+            torch, dev, K, dist, rvecs, tvecs, image_hw), torch, dev)
+        rigs[cam] = (K, dist, rvecs, tvecs, frames)
+        rep["cameras"][cam] = {"views": len(rvecs), "render_s": render_s}
+    split = {"render": time.perf_counter() - t_phase}
+    t_part = time.perf_counter()
+
+    def part(name):  # seconds since the last part ended, into ``split``
+        nonlocal t_part
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + now - t_part
+        t_part = now
+
+    n_views = sum(len(r[2]) for r in rigs.values())
+    print(f"  {n_views} views rendered at {W}x{H} on {dev.type} in "
+          f"{sum(c['render_s'] for c in rep['cameras'].values()):.2f} s")
+
+    # first calls, timed apart: the device's first f64 solve loads its
+    # solver library; the process's first forward-mode derivative of a
+    # tensor-scalar operation on the card takes seconds (any later one,
+    # milliseconds), so the first LM is not charged with it
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    _, rep["first_solve_s"] = timed_s(
+        lambda: torch.linalg.solve(eye, eye[0]), torch, dev)
+    _, rep["first_jacfwd_s"] = timed_s(
+        lambda: torch.func.jacfwd(lambda v: v + 1.0)(eye[0]), torch, dev)
+    print(f"  first calls on {dev.type}: f64 solve {rep['first_solve_s']:.2f}"
+          f" s, torch.func.jacfwd {rep['first_jacfwd_s']:.2f} s")
+    part("first calls")
+
+    # -- the corners method: cmd_calibrate's sequence ---------------------
+    noisy = {}
+    for cam, (K, dist, rvecs, tvecs, frames) in rigs.items():
+        c = rep["cameras"][cam]
+        gray = color.bgr_to_gray_u8(torch.from_numpy(frames).to(dev))
+        gray_h = gray.cpu().numpy()
+        t0 = time.perf_counter()
+        det = [corners.detect_chessboard(gray[i], CALIB_PATTERN)
+               for i in range(len(frames))]
+        c["detect_ms_per_view"] = (time.perf_counter() - t0) * 1e3 / len(det)
+        t0 = time.perf_counter()
+        det_cpu = [corners.detect_chessboard(gray_h[i], CALIB_PATTERN,
+                                             device="cpu")
+                   for i in range(len(frames))]
+        c["detect_cpu_ms_per_view"] = ((time.perf_counter() - t0) * 1e3
+                                       / len(det))
+        part("detect")
+        found = [i for i, p in enumerate(det) if p is not None]
+        expect(found == [i for i, p in enumerate(det_cpu) if p is not None],
+               f"cam{cam}: detect_chessboard finds the board in the same "
+               f"{len(found)} of {len(det)} views on {dev.type} and on the CPU")
+        diff = max((float(np.abs(det[i] - det_cpu[i]).max()) for i in found),
+                   default=0.0)
+        expect(diff <= 1e-3, f"cam{cam}: corners on {dev.type} and the CPU "
+               f"within {diff:.2e} px (<= 1e-3)")
+        truth = true_corners(K, dist, rvecs, tvecs)
+        if found:  # corner_subpix alone from the true corners, 1 px off
+            i = found[0]
+            init = truth[i] + np.random.default_rng(cam).uniform(
+                -1, 1, truth[i].shape)
+            q, n_it = corners.corner_subpix(gray[i], init, return_iters=True)
+            q_c, n_it_c = corners.corner_subpix(gray_h[i], init,
+                                                return_iters=True,
+                                                device="cpu")
+            c["subpix"] = {
+                "max_diff_px": float(np.abs(q.cpu().numpy()
+                                            - q_c.numpy()).max()),
+                "iters_equal": bool(torch.equal(n_it.cpu(), n_it_c)),
+                "mean_iters": float(n_it_c.float().mean())}
+            expect(c["subpix"]["max_diff_px"] <= 1e-3,
+                   f"cam{cam}: corner_subpix on {dev.type} and the CPU within "
+                   f"{c['subpix']['max_diff_px']:.1e} px; iteration counts "
+                   f"{'equal' if c['subpix']['iters_equal'] else 'differ'}")
+        errs = np.concatenate([np.linalg.norm(
+            det[i][:, None] - truth[i][None], axis=-1).min(1) for i in found]
+        ) if found else np.zeros(0)
+        c["detected"] = len(found)
+        c["corner_err_px"] = ({"median": float(np.median(errs)),
+                               "max": float(errs.max())} if found else None)
+        print(f"  cam{cam}: {len(found)}/{len(det)} views detected, "
+              f"{c['detect_ms_per_view']:.1f} ms/view ({dev.type}), "
+              f"{c['detect_cpu_ms_per_view']:.1f} ms/view (CPU); corner "
+              f"error vs truth {c['corner_err_px']}")
+        rng = np.random.default_rng(SEED + cam)
+        noisy[cam] = [t + rng.normal(0, CALIB_NOISE_PX, t.shape)
+                      for t in truth]
+        sets = [("noisy", noisy[cam])]
+        if len(found) >= 3:
+            sets.insert(0, ("detected", [det[i].astype(np.float32)
+                                         for i in found]))
+        c["lm"] = {}
+        for name, pts in sets:
+            res, lm_s = timed_s(lambda: calib.calibrate_camera(
+                pts, (W, H), CALIB_PATTERN, CALIB_SQUARE, device=dev),
+                torch, dev)
+            res_cpu, lm_cpu_s = timed_s(lambda: calib.calibrate_camera(
+                pts, (W, H), CALIB_PATTERN, CALIB_SQUARE, device="cpu"),
+                torch, cpu)
+            err = calib_rel_err(res, res_cpu)
+            expect(err <= 1e-6, f"cam{cam}: calibrate_camera on the "
+                   f"{len(pts)} {name} views, {dev.type} vs CPU: K, dist, "
+                   f"poses, rms, per-view errors within rtol {err:.1e}")
+            c["lm"][name] = {"views": len(pts), "seconds": lm_s,
+                             "cpu_seconds": lm_cpu_s, "rms": res.rms,
+                             "fx": res.K[0, 0], "fy": res.K[1, 1],
+                             "fx_err": res.K[0, 0] / K[0, 0] - 1,
+                             "rtol": err}
+            if name == "noisy" and cam == 1:
+                lm1 = res
+            print(f"  cam{cam} {name}: LM {lm_s:.2f} s ({dev.type}), "
+                  f"{lm_cpu_s:.2f} s (CPU); rms {res.rms:.3f} px, fx "
+                  f"{res.K[0, 0]:.2f} vs {K[0, 0]:.2f}")
+            part("lm")
+
+    # leave-one-out discarding on cam1's first views, both devices
+    pts = list(noisy[1][:DISCARD_VIEWS])
+    if len(pts) > 2:  # one view corrupted, as tests/test_calibration.py does
+        pts[2] = pts[2] + np.random.default_rng(SEED).normal(0, 3.0,
+                                                             pts[2].shape)
+    out = calib.discard_bad_image_points(pts, (W, H), CALIB_PATTERN,
+                                         CALIB_SQUARE, device=dev)
+    out_cpu = calib.discard_bad_image_points(pts, (W, H), CALIB_PATTERN,
+                                             CALIB_SQUARE, device="cpu")
+    expect(out[1] == out_cpu[1] and out[3] == out_cpu[3],
+           f"discard_bad_image_points on cam1's first {len(pts)} views: "
+           f"the same views kept and dropped on {dev.type} and on the CPU "
+           f"(dropped {out[3]})")
+    rep["discarded"] = out[3]
+    part("discard")
+    cam_dir = os.path.join(build_root, "calib_config", "cam1")
+    xmlio.save_camera_config(cam_dir, lm1.K, lm1.dist, lm1.rvecs[0],
+                             lm1.tvecs[0])
+    back = xmlio.load_camera_config(cam_dir)
+    expect(all(np.array_equal(np.asarray(a, np.float64).ravel(),
+                              np.asarray(b, np.float64).ravel())
+               for a, b in zip(back, (lm1.K, lm1.dist, lm1.rvecs[0],
+                                      lm1.tvecs[0]))),
+           "save_camera_config then load_camera_config gives cam1's K, "
+           "dist, rvec and tvec back bit for bit")
+
+    # -- the photometric method -------------------------------------------
+    for cam, (K, dist, rvecs, tvecs, frames) in rigs.items():
+        c = rep["cameras"][cam]
+        (res, pviews), photo_s = timed_s(
+            lambda: pc.calibrate_video_photometric(
+                iter(list(frames)), CALIB_PATTERN, CALIB_SQUARE, iters=iters,
+                device=dev), torch, dev)
+        init = calib.calibrate_camera([v.corners for v in pviews], (W, H),
+                                      CALIB_PATTERN, CALIB_SQUARE, device=dev)
+        rmax = board_radius(K, dist, rvecs, tvecs, image_hw)
+        curve = radial_curve_err_px(res.dist, dist, rmax, K[0, 0])
+        curve0 = radial_curve_err_px(np.asarray(init.dist)[:5], dist, rmax,
+                                     K[0, 0])
+        fx_err = res.K[0, 0] / K[0, 0] - 1
+        fy_err = res.K[1, 1] / K[1, 1] - 1
+        c["photometric"] = {
+            "views": len(pviews), "seconds": photo_s, "fx": res.K[0, 0],
+            "fy": res.K[1, 1], "fx_err": fx_err, "fy_err": fy_err,
+            "cx_err_px": res.K[0, 2] - K[0, 2],
+            "cy_err_px": res.K[1, 2] - K[1, 2],
+            "radial_curve_err_px": curve, "warm_start_curve_err_px": curve0,
+            "warm_start_fx_err": init.K[0, 0] / K[0, 0] - 1,
+            "rmax": rmax, "final_loss": float(res.loss_curve[-1]),
+            "median_mse": float(np.median(res.mse))}
+        print(f"  cam{cam} photometric: {len(pviews)} views, {photo_s:.2f} s;"
+              f" fx {res.K[0, 0]:.2f} ({fx_err:+.4f}), fy {res.K[1, 1]:.2f} "
+              f"({fy_err:+.4f}), cx {res.K[0, 2] - K[0, 2]:+.2f} px, cy "
+              f"{res.K[1, 2] - K[1, 2]:+.2f} px; radial curve "
+              f"{curve:.3f} px (warm start {curve0:.3f})")
+        if iters == CALIB_ITERS:  # the bounds of the production schedule
+            expect(abs(fx_err) < 0.01 and abs(fy_err) < 0.01,
+                   f"cam{cam}: photometric fx and fy within 1 % of the truth")
+            expect(curve < curve0, f"cam{cam}: the radial curve ends closer "
+                   "to the truth than the warm start's")
+        if cam == 1:
+            views1, init1 = pviews, init
+        part("photometric")
+
+    # -- cam1: the card against the CPU, the graph against eager ----------
+    init_t = (init1.K, np.asarray(init1.dist)[:5].copy(),
+              list(zip(init1.rvecs, init1.tvecs)))
+    probs = {d: pc.PhotometricProblem(views1, (W, H), CALIB_PATTERN,
+                                      CALIB_SQUARE, init=init_t, device=d)
+             for d in (dev, cpu)}
+    L, g = probs[dev].value_and_grad()
+    L_cpu, g_cpu = probs[cpu].value_and_grad()
+    F = probs[dev].F
+    groups = {"intrinsics": slice(0, 4), "dist": slice(4, 9),
+              "poses": slice(9, 9 + 6 * F), "nuisance": slice(9 + 6 * F, None)}
+    g_err = {k: float(np.abs(g[s] - g_cpu[s]).max() / np.abs(g_cpu[s]).max())
+             for k, s in groups.items()}
+    expect(rel_err(L, L_cpu) <= 1e-5 and max(g_err.values()) <= 1e-3,
+           f"cam1 at the warm start: loss on {dev.type} and the CPU within "
+           f"rtol {rel_err(L, L_cpu):.1e}, gradient within "
+           f"{max(g_err.values()):.1e} of each group's largest")
+    n_nuis = min(400, iters // 6)  # the production schedule's first stage
+    n_first = min(ADAM_STEPS, iters)
+    first = [(min(n_first, n_nuis), "nuisance"),
+             (n_first - min(n_first, n_nuis), "all")]
+    p_g, curve_g = probs[dev].run(first)
+    p_c, curve_c = probs[cpu].run(first)
+    expect(rel_err(curve_g, curve_c) <= 1e-3,
+           f"cam1: the first {n_first} Adam steps' losses on {dev.type} "
+           f"and the CPU within rtol {rel_err(curve_g, curve_c):.1e}")
+    route = "graph" if dev.type == "cuda" else "eager"
+    adam = {"route": route,
+            f"{route}_ms_per_step": probs[dev].ms_per_step}
+    if dev.type == "cuda":
+        p_e, curve_e = probs[dev].run(first, route="eager")
+        expect(torch.equal(p_e, p_g) and np.array_equal(curve_e, curve_g),
+               f"cam1: {n_first} Adam steps replayed from the CUDA graph "
+               "bit-equal to the eager steps (parameters and losses)")
+        adam["eager_ms_per_step"] = probs[dev].ms_per_step
+    print(f"  Adam ms per step at {F} views x {probs[dev].S} samples: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in adam.items()
+                      if k != "route"))
+    rep["adam"] = adam
+    K1 = rigs[1][0]
+    pin = np.round(K1[:2, 2] * 64) / 64  # the truth, held exactly in f32
+    res_pp = pc.photometric_calibrate(  # calibrate_video_photometric's fit
+        views1, (W, H), CALIB_PATTERN, CALIB_SQUARE, init=init_t,
+        stages=[(n_nuis, "nuisance"), (iters - n_nuis, "all")],
+        fix_pp=tuple(pin), device=dev)
+    pp_err = float(np.abs(res_pp.K[:2, 2] - pin).max())
+    expect(pp_err <= 1e-6, f"cam1 with fix_pp, {iters} steps: cx and cy "
+           f"pinned within {pp_err:.1e} px; fx {res_pp.K[0, 0]:.2f}")
+    rep["fix_pp"] = {"fx_err": res_pp.K[0, 0] / K1[0, 0] - 1,
+                     "fy_err": res_pp.K[1, 1] / K1[1, 1] - 1}
+    part("cam1 checks")
+    rep["split_s"] = split
+    print("  phase 19 by part (s): " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in split.items()))
+    rep["peak_gb"] = peak_gb(torch, dev)
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
         seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW,
-        large_edges=LARGE_EDGES):
+        large_edges=LARGE_EDGES, calib_hw=CALIB_HW, calib_views=None,
+        calib_iters=CALIB_ITERS):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
@@ -2289,8 +2688,10 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     labelling kernels at the cap ``label_cap`` and on a ``label_large_hw``
     image besides, driving the viewer seam at the two
     ``set_voxel_positions`` sizes ``seam_sizes`` (the second not divisible
-    by 8·sup) and the large grids at the edges ``large_edges`` (the rig's
-    steps, the 8-camera carve); returns the per-kernel report."""
+    by 8·sup), the large grids at the edges ``large_edges`` (the rig's
+    steps, the 8-camera carve) and the calibration on boards rendered at
+    ``calib_hw``, ``calib_views`` poses per camera (None: all) and
+    ``calib_iters`` Adam steps; returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -2770,6 +3171,14 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     large["seconds"] = time.perf_counter() - t0
     print(f"  phase 18 in {large['seconds']:.1f} s")
 
+    # -- [19] intrinsic calibration ----------------------------------------
+    print(f"[19] intrinsic calibration on boards rendered at the real "
+          f"cameras' poses: detect_chessboard, calibrate_camera, "
+          f"calibrate_video_photometric ({calib_iters} steps)", flush=True)
+    calibration = calibration_phase(torch, dev, calib_hw, calib_views,
+                                    calib_iters)
+    print(f"  phase 19 in {calibration['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -2819,6 +3228,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "surface": surface,
         "viewer": viewer,
         "large_grid": large,
+        "calibration": calibration,
     }
 
 

@@ -60,7 +60,9 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             k3_frames=2, label_large_hw=(16, 256),
                             label_cap=16,
                             seam_sizes=((32, 16, 32), (20, 8, 16)),
-                            roi_hw=(112, 128), large_edges=(64, 32))
+                            roi_hw=(112, 128), large_edges=(64, 32),
+                            calib_hw=(244, 322), calib_views=3,
+                            calib_iters=30)
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -213,6 +215,29 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "Reconstructor(use_tables=False) at (32, 32, 32) on the "
                  "rig: occupancy and colours equal on cpu and on the CPU"):
         assert f"ok: {what}" in out
+    # phase 19: calibration on boards rendered at the real poses, here 3
+    # per camera at 244x322 and 30 Adam steps
+    calib = report["calibration"]
+    assert calib["image_hw"] == [244, 322] and calib["iters"] == 30
+    assert set(calib["cameras"]) == {1, 2, 3, 4}
+    for cam, c in calib["cameras"].items():
+        assert c["views"] == 3 and "noisy" in c["lm"]
+        assert c["lm"]["noisy"]["rtol"] == 0  # the CPU against itself
+        assert c["photometric"]["views"] >= 3
+        for what in (f"cam{cam}: detect_chessboard finds the board in the "
+                     "same", f"cam{cam}: corners on cpu and the CPU within",
+                     f"cam{cam}: calibrate_camera on the 3 noisy views, cpu "
+                     "vs CPU"):
+            assert f"ok: {what}" in out
+    assert calib["adam"]["route"] == "eager"
+    assert calib["adam"]["eager_ms_per_step"] > 0
+    for what in ("discard_bad_image_points on cam1's first 3 views: the same",
+                 "save_camera_config then load_camera_config gives cam1's",
+                 "cam1 at the warm start: loss on cpu and the CPU within",
+                 "cam1: the first 30 Adam steps' losses on cpu and the CPU",
+                 "cam1 with fix_pp, 30 steps: cx and cy pinned within 0.0e+00"):
+        assert f"ok: {what}" in out
+    assert "photometric fx and fy within 1 %" not in out  # production only
 
 
 def test_crossing_sweeps_meet_inside_every_band():

@@ -84,13 +84,40 @@ def test_init_states_match():
     pj, pt = _params(n_mixtures=7)
     for init_j, init_t in ((jgmm.init_state, tgmm.init_state),
                            (jgmm.init_train_state, tgmm.init_train_state)):
-        st_j, st_t = init_j((6, 10), pj), init_t((6, 10), pt)
+        st_j, st_t = init_j((6, 10), pj), init_t((6, 10), pt, "cpu")
         # the port's training state also carries its high-water mark
         extra = ("used",) if init_t is tgmm.init_train_state else ()
         assert st_t._fields == st_j._fields + extra
         for a, b in zip(st_t, st_j):
             assert tuple(a.shape) == b.shape and not a.any()
             assert str(a.dtype).split(".")[1] == str(b.dtype)
+
+
+@pytest.mark.parametrize("make", ["init_state", "init_train_state",
+                                  "from_numpy_state", "train_state_from_numpy",
+                                  "stack_frozen", "load_mog_state"])
+def test_state_helpers_default_to_the_card(make, tmp_path):
+    """Like every entry point, the state helpers build on ``"cuda"`` unless
+    told otherwise, and raise without a card (no CPU fallback)."""
+    from vbr_tpu_torch.pipelines import background as tbg
+    from vbr_tpu_torch.utils.config import MOGParams
+
+    p = MOGParams(n_mixtures=3)
+    st = tgmm.init_state((4, 5), p, "cpu")
+    path = str(tmp_path / "mog.npz")
+    tart.save_mog_state(path, st)
+    ts = tgmm.init_train_state((4, 5), p, "cpu")
+    call = {"init_state": lambda: tgmm.init_state((4, 5), p),
+            "init_train_state": lambda: tgmm.init_train_state((4, 5), p),
+            "from_numpy_state": lambda: tart.from_numpy_state(st),
+            "train_state_from_numpy": lambda: tart.train_state_from_numpy(
+                tart.train_state_to_numpy(ts)),
+            "stack_frozen": lambda: tbg.stack_frozen([st], p),
+            "load_mog_state": lambda: tart.load_mog_state(path)}[make]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 # -- one chunk, at the JAX package's own test size --------------------------
@@ -104,8 +131,8 @@ def chunk():
     frames = rng.integers(0, 256, (T0, H0, W0, 3), dtype=np.uint8)
     pj, pt = _params(history=T0, use_hsv=False, n_mixtures=50)
     st_t, masks_t = tgmm._train_chunk(
-        tgmm.init_train_state((H0, W0), pt), torch.from_numpy(frames), pt,
-        True)
+        tgmm.init_train_state((H0, W0), pt, "cpu"), torch.from_numpy(frames),
+        pt, True)
     return frames, pj, pt, st_t, masks_t
 
 
@@ -139,7 +166,7 @@ def test_train_chunk_against_compiled(chunk, ref):
 def test_k3_wrapper_uses_plain_on_cpu_only(chunk):
     frames, _, pt, st_t, _ = chunk
     before = tgmm.K3.launches
-    st0 = tgmm.init_train_state((H0, W0), pt)
+    st0 = tgmm.init_train_state((H0, W0), pt, "cpu")
     got = tgmm.train_chunk_kernel(st0, torch.from_numpy(frames), pt)
     for name in FIELDS + ("sort_key", "nframes"):
         assert torch.equal(getattr(got, name), getattr(st_t, name)), name
@@ -207,7 +234,7 @@ def test_mid_training_state_carried_across():
                                  jnp.asarray(frames[:9]), pj, False)
     mid_np = jgmm.MOGTrainState(*(np.asarray(a) for a in mid_j))
     assert int(mid_np.nframes) == 9 > pj.history
-    mid_t = tart.train_state_from_numpy(mid_np)
+    mid_t = tart.train_state_from_numpy(mid_np, "cpu")
     back = tart.train_state_to_numpy(mid_t)
     for name in mid_np._fields:
         np.testing.assert_array_equal(getattr(back, name),
@@ -412,7 +439,7 @@ def _design_case(K, start, seed=21):
     H, W = 3, 8
     _, pt = _params(history=9, use_hsv=False, n_mixtures=K)
     frames = _anchored_frames(rng, 18, H, W)
-    state = tgmm.init_train_state((H, W), pt)
+    state = tgmm.init_train_state((H, W), pt, "cpu")
     if start != "zeros":
         warm = torch.from_numpy(_anchored_frames(rng, 7, H, W))
         state = tgmm.train_chunk_plain(state, warm, pt)
@@ -454,7 +481,7 @@ def test_two_residences_equal_plain(S):
     rng = np.random.default_rng(22 + S)
     H, W = 4, 12
     _, pt = _params(history=30, use_hsv=False, n_mixtures=50)
-    state = tgmm.init_train_state((H, W), pt)
+    state = tgmm.init_train_state((H, W), pt, "cpu")
     frames = _anchored_frames(rng, 48, H, W)
     want = tgmm.train_chunk_plain(state, torch.from_numpy(frames), pt)
     arrays, used, crossings = _kernel_model(state, frames, pt, S)
@@ -478,7 +505,7 @@ def test_train_state_round_trip_and_five_arrays(with_mark):
                                  jnp.asarray(_anchored_frames(rng, 6, H, W)),
                                  pj, False)
     mid_np = jgmm.MOGTrainState(*(np.asarray(a) for a in mid_j))
-    mid_t = tart.train_state_from_numpy(mid_np)
+    mid_t = tart.train_state_from_numpy(mid_np, "cpu")
     assert torch.equal(mid_t.used, tgmm.slot_high_water(mid_t.weight,
                                                         mid_t.sort_key))
     assert 1 <= int(mid_t.used.min()) and int(mid_t.used.max()) <= 5

@@ -1,4 +1,5 @@
-"""The port and its chip script import nothing of JAX, cv2 or ``vbr_tpu``."""
+"""The port and its chip script import nothing of JAX, cv2, matplotlib or
+``vbr_tpu``."""
 
 import os
 import subprocess
@@ -20,12 +21,16 @@ MODULES = [
     "vbr_tpu_torch.ops.ccl",
     "vbr_tpu_torch.ops.ccl_label",
     "vbr_tpu_torch.ops.color",
+    "vbr_tpu_torch.ops.corners",
     "vbr_tpu_torch.ops.gmm",
     "vbr_tpu_torch.ops.marching_cubes",
     "vbr_tpu_torch.ops.morphology",
     "vbr_tpu_torch.ops.texturing",
     "vbr_tpu_torch.pipelines.background",
+    "vbr_tpu_torch.pipelines.calibration",
+    "vbr_tpu_torch.pipelines.photometric_calibration",
     "vbr_tpu_torch.pipelines.reconstruction",
+    "vbr_tpu_torch.pipelines.validation",
     "vbr_tpu_torch.utils.artifacts",
     "vbr_tpu_torch.utils.config",
     "vbr_tpu_torch.utils.device",
@@ -37,7 +42,7 @@ MODULES = [
 ]
 
 
-@pytest.mark.parametrize("blocked", ["jax", "vbr_tpu", "cv2"])
+@pytest.mark.parametrize("blocked", ["jax", "vbr_tpu", "cv2", "matplotlib"])
 def test_port_imports_without(blocked):
     code = (
         "import sys\n"

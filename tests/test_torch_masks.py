@@ -54,7 +54,7 @@ def mog_arrays(rng, bg_hsv, K=K, n_slots=4):
 def _states(w, mean, var):
     js = jgmm.MOGState(weight=jnp.asarray(w), mean=jnp.asarray(mean),
                        var=jnp.asarray(var), nframes=jnp.int32(30))
-    ts = tart.from_numpy_state(js)
+    ts = tart.from_numpy_state(js, "cpu")
     return js, ts
 
 
@@ -116,7 +116,8 @@ def test_raw_and_finalize_masks_batched_match():
     mp_j = tuple(jconfig.DEFAULT_MASK_PARAMS)
     mp_t = tuple(tconfig.DEFAULT_MASK_PARAMS)
     jfz = jbg.stack_frozen([j for j, _ in pairs], jconfig.MOGParams())
-    tfz = tbg.stack_frozen([t for _, t in pairs], tconfig.MOGParams())
+    tfz = tbg.stack_frozen([t for _, t in pairs], tconfig.MOGParams(),
+                            "cpu")
     for name in ("mean", "thr", "bcount"):
         np.testing.assert_array_equal(getattr(tfz, name).numpy(),
                                       np.asarray(getattr(jfz, name)))

@@ -94,7 +94,7 @@ def models():
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in mp],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in mj.bg_states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in mj.bg_states]
     mt.mog_params = [tconfig.MOGParams()] * C
     frames = [_frame(rng, bg, (60.0 + 40 * i, -40.0, -650.0))
               for i in range(3)]

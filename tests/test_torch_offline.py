@@ -400,7 +400,7 @@ def models():
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in mp],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in mj.bg_states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in mj.bg_states]
     mt.mog_params = [tconfig.MOGParams(history=6)] * C
     base = bg[:, 0].copy()
     frames = []

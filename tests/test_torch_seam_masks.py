@@ -155,7 +155,7 @@ def rig():
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in MASK_PARAMS],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in states]
     mt.mog_params = [tconfig.MOGParams()] * C
     frame = _frame(rng, bg, (60.0, -40.0, -650.0))
     over = _frame(rng, bg, (90.0, -40.0, -650.0), speckle=0)

@@ -423,7 +423,7 @@ def _models(grid_kw):
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in mp],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in states]
     mt.mog_params = [tconfig.MOGParams()] * C
     frames = [_frame(rng, bg, cams, (60.0 + 60 * i, -40.0 + 30 * i, -650.0))
               for i in range(3)]

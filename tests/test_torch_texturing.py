@@ -147,7 +147,7 @@ def test_textured_frame_matches():
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in mp],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in states]
     mt.mog_params = [tconfig.MOGParams()] * C
     got = mt.textured_frame(frame)
     # the reference takes the port's masks (held equal to its own by

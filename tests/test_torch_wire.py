@@ -109,7 +109,7 @@ def build_models(seed=5, figure_threshold=200.0):
                         mask_params=[tconfig.MaskParams(
                             **dataclasses.asdict(p)) for p in mp],
                         device="cpu")
-    mt.bg_states = [tart.from_numpy_state(s) for s in states]
+    mt.bg_states = [tart.from_numpy_state(s, "cpu") for s in states]
     mt.mog_params = [tconfig.MOGParams()] * C
     frames = [_frame(rng, bg, cams, (40.0 + 25 * i, -40.0 + 10 * i, -650.0))
               for i in range(4)]

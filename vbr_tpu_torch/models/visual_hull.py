@@ -771,7 +771,7 @@ class VisualHull:
         states = []
         for c in range(self.rig.num_cameras):
             st = artifacts.load_mog_state(
-                os.path.join(out_dir, f"mog_cam{c + 1}.npz"))
+                os.path.join(out_dir, f"mog_cam{c + 1}.npz"), "cpu")
             if st is None:
                 return False
             states.append(st)

@@ -2,16 +2,22 @@
 
 Counterpart of ``vbr_tpu/ops/camera.py`` (``rodrigues``,
 ``rodrigues_inverse``, ``distort_normalized``, ``project_points_rt``,
-``project_points``), with the same operation order, so the f64 projection
-tables the carve reads are bit-identical to the JAX package's host build.
+``project_points``, ``undistort_points``, ``homography_dlt``,
+``apply_homography``, ``perspective_transform_4pt``), with the same
+operation order, so the f64 projection tables the carve reads are
+bit-identical to the JAX package's host build.
 
-``rodrigues``, ``distort_normalized``, ``project_points_rt`` and
-``project_points`` also take tensors (as ``vbr_tpu``'s take ``xp=jnp``):
-the f32 projection of the device table builds, one eager elementwise
-operation at a time (no matmul, so no TF32, and no fused multiply-add).
+Every function but ``rodrigues_inverse`` also takes tensors (as
+``vbr_tpu``'s take ``xp=jnp``) and computes in the input's dtype on its
+device: the f32 projection of the device table builds, one eager
+elementwise operation at a time (no matmul, so no TF32, and no fused
+multiply-add), and the f64 residuals of the calibration solver, which
+``torch.func`` differentiates (no in-place operations, no host syncs).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -130,3 +136,107 @@ def project_points(points, rvec, tvec, K, dist):
     if not isinstance(tvec, torch.Tensor):
         tvec = np.asarray(tvec)
     return project_points_rt(points, R, tvec.reshape(3), K, dist)
+
+
+def undistort_points(uv, K, dist, num_iters: int = 8):
+    """Invert the distortion: pixels (..., 2) → normalized undistorted
+    coordinates (..., 2) by ``num_iters`` fixed-point rounds (as
+    ``cv2.undistortPoints``).  A tensor ``uv`` gives a tensor of its dtype
+    (``K`` and ``dist`` as host arrays or tensors of the same dtype)."""
+    if isinstance(uv, torch.Tensor):
+        stack = torch.stack
+    else:
+        uv, stack = np.asarray(uv), np.stack
+    xd = (uv[..., 0] - K[0, 2]) / K[0, 0]
+    yd = (uv[..., 1] - K[1, 2]) / K[1, 1]
+    xn, yn = xd, yd
+    for _ in range(num_iters):
+        xe, ye = distort_normalized(xn, yn, dist)
+        xn = xn + (xd - xe)
+        yn = yn + (yd - ye)
+    return stack([xn, yn], axis=-1)
+
+
+def _normalization_transform(pts):
+    """Hartley normalization: the similarity T for which T·pts has zero
+    mean and √2 mean distance from it."""
+    if isinstance(pts, torch.Tensor):
+        mean = pts.mean(dim=0)
+        centered = pts - mean
+        spread = torch.sqrt((centered * centered).sum(dim=1)).mean()
+        scale = math.sqrt(2.0) / torch.clamp(spread, min=1e-12)
+        zero, one = torch.zeros_like(scale), torch.ones_like(scale)
+        stack = torch.stack
+    else:
+        mean = np.mean(pts, axis=0)
+        centered = pts - mean
+        scale = np.sqrt(2.0) / np.maximum(
+            np.mean(np.sqrt(np.sum(centered * centered, axis=1))), 1e-12)
+        zero, one = np.zeros_like(scale), np.ones_like(scale)
+        stack = np.stack
+    return stack([
+        stack([scale, zero, -scale * mean[0]]),
+        stack([zero, scale, -scale * mean[1]]),
+        stack([zero, zero, one]),
+    ])
+
+
+def homography_dlt(src, dst):
+    """H (3, 3) mapping src (N, 2) → dst (N, 2), N ≥ 4: the normalized DLT
+    (the smallest right singular vector of the 2N×9 design matrix),
+    scaled to H[2, 2] = 1.  Tensors give a tensor of their dtype; the SVD
+    is the device's, so f64 results agree with the host's to ~1e-12
+    relative, not bit for bit."""
+    if isinstance(src, torch.Tensor):
+        xp, cat, linalg = torch, torch.cat, torch.linalg
+    else:
+        src, dst = np.asarray(src), np.asarray(dst)
+        xp, cat, linalg = np, np.concatenate, np.linalg
+    Ts = _normalization_transform(src)
+    Td = _normalization_transform(dst)
+    ones = xp.ones_like(src[..., :1])
+    s_h = cat([src, ones], axis=-1) @ Ts.T
+    d_h = cat([dst, ones], axis=-1) @ Td.T
+    x, y = s_h[:, 0], s_h[:, 1]
+    u, v = d_h[:, 0], d_h[:, 1]
+    zero, one = xp.zeros_like(x), xp.ones_like(x)
+    rows_u = xp.stack([x, y, one, zero, zero, zero, -u * x, -u * y, -u],
+                      axis=-1)
+    rows_v = xp.stack([zero, zero, zero, x, y, one, -v * x, -v * y, -v],
+                      axis=-1)
+    A = cat([rows_u, rows_v], axis=0)
+    _, _, vt = linalg.svd(A, full_matrices=False)
+    H = linalg.inv(Td) @ vt[-1].reshape(3, 3) @ Ts
+    return H / H[2, 2]
+
+
+def apply_homography(H, pts):
+    """H applied to points (..., 2), with the perspective divide."""
+    if isinstance(pts, torch.Tensor):
+        ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1) @ H.T
+    else:
+        pts = np.asarray(pts)
+        ph = np.concatenate([pts, np.ones_like(pts[..., :1])],
+                            axis=-1) @ np.transpose(H)
+    return ph[..., :2] / ph[..., 2:3]
+
+
+def perspective_transform_4pt(src4, dst4):
+    """The exact 4-point homography (``cv2.getPerspectiveTransform``): the
+    8×8 linear system solved directly."""
+    if isinstance(src4, torch.Tensor):
+        xp, solve = torch, torch.linalg.solve
+        cat = torch.cat
+    else:
+        src4, dst4 = np.asarray(src4), np.asarray(dst4)
+        xp, solve = np, np.linalg.solve
+        cat = np.concatenate
+    rows = []
+    for i in range(4):
+        x, y = src4[i, 0], src4[i, 1]
+        u, v = dst4[i, 0], dst4[i, 1]
+        zero, one = xp.zeros_like(x), xp.ones_like(x)
+        rows.append(xp.stack([x, y, one, zero, zero, zero, -u * x, -u * y]))
+        rows.append(xp.stack([zero, zero, zero, x, y, one, -v * x, -v * y]))
+    h8 = solve(xp.stack(rows), dst4.reshape(-1))
+    return cat([h8, xp.ones_like(h8[:1])]).reshape(3, 3)

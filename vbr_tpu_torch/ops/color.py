@@ -1,9 +1,12 @@
-"""Colour-space transforms with OpenCV's 8-bit conventions, and the YUV
-4:2:0 wire format of the reduced-byte ingest.
+"""Colour-space and intensity transforms with OpenCV's 8-bit
+conventions, and the YUV 4:2:0 wire format of the reduced-byte ingest.
 
 Counterpart of ``vbr_tpu/ops/color.py``'s ``bgr_to_hsv_u8``, bit-exact:
 the same int32 fixed-point tables (hsv_shift = 12) and half-to-even
-rounding (``torch.round``, like ``jnp.round`` and OpenCV's cvRound); and
+rounding (``torch.round``, like ``jnp.round`` and OpenCV's cvRound); of
+its ``bgr_to_gray_u8``, ``equalize_hist_u8``, ``threshold_binary`` and
+``threshold_binary_inv`` (the calibration's board segmentation), each on
+the tensor's device; and
 of its ``bgr_to_yuv420_host`` / ``yuv420_to_bgr_u8``: the host pack
 ((C, H, W, 3) u8 BGR → (C, H·3/2, W) u8: the Y plane, then H/2 rows of U
 on the left and V on the right, integer BT.601 full range, each chroma
@@ -47,6 +50,43 @@ def bgr_to_hsv_u8(bgr: torch.Tensor) -> torch.Tensor:
     h = (h_num + (1 << (shift - 1))) >> shift
     h = torch.where(h < 0, h + 180, h)
     return torch.stack([h, s, v], dim=-1).to(torch.uint8)
+
+
+def bgr_to_gray_u8(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 BGR → (...) u8 gray: Rec.601 weights in f32, one
+    operation at a time, rounded half to even."""
+    b = bgr[..., 0].to(torch.float32)
+    g = bgr[..., 1].to(torch.float32)
+    r = bgr[..., 2].to(torch.float32)
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    return torch.round(y).to(torch.uint8)
+
+
+def equalize_hist_u8(gray: torch.Tensor) -> torch.Tensor:
+    """Histogram equalization as ``cv2.equalizeHist``: lut[i] =
+    round((cdf[i] − cdf_min) · 255 / (N − cdf_min)) in f32, cdf_min the
+    cumulative count at the first occupied bin.  No host sync."""
+    flat = gray.reshape(-1)
+    hist = torch.bincount(flat.to(torch.int64), minlength=256)
+    cdf = torch.cumsum(hist, 0)
+    cdf_min = cdf[torch.argmax((hist > 0).to(torch.uint8))]
+    denom = torch.clamp(flat.numel() - cdf_min, min=1)
+    lut = torch.round((cdf - cdf_min).to(torch.float32) * 255.0
+                      / denom.to(torch.float32))
+    lut = lut.clamp(0, 255).to(torch.uint8)
+    return lut[flat.to(torch.int64)].reshape(gray.shape)
+
+
+def threshold_binary(img: torch.Tensor, thresh: float,
+                     maxval: int = 255) -> torch.Tensor:
+    """``cv2.threshold(img, t, maxval, THRESH_BINARY)``: maxval·(img > t)."""
+    return torch.where(img > thresh, maxval, 0).to(torch.uint8)
+
+
+def threshold_binary_inv(img: torch.Tensor, thresh: float,
+                         maxval: int = 255) -> torch.Tensor:
+    """THRESH_BINARY_INV: maxval·(img <= t)."""
+    return torch.where(img > thresh, 0, maxval).to(torch.uint8)
 
 
 def bgr_to_yuv420_host(frames: np.ndarray) -> np.ndarray:

@@ -163,7 +163,8 @@ class MOGTrainState(NamedTuple):
     used: Optional[torch.Tensor] = None
 
 
-def init_state(shape_hw, params: MOGParams, device="cpu") -> MOGState:
+def init_state(shape_hw, params: MOGParams, device="cuda") -> MOGState:
+    device = resolve_device(device)
     H, W = shape_hw
     K = params.n_mixtures
     return MOGState(
@@ -175,7 +176,8 @@ def init_state(shape_hw, params: MOGParams, device="cpu") -> MOGState:
 
 
 def init_train_state(shape_hw, params: MOGParams,
-                     device="cpu") -> MOGTrainState:
+                     device="cuda") -> MOGTrainState:
+    device = resolve_device(device)
     H, W = shape_hw
     K = params.n_mixtures
     hw = H * W

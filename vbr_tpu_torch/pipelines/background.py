@@ -23,6 +23,7 @@ import torch
 from vbr_tpu_torch.ops import ccl, gmm, morphology
 from vbr_tpu_torch.ops import color as color_ops
 from vbr_tpu_torch.utils.config import MaskParams, MOGParams
+from vbr_tpu_torch.utils.device import resolve_device
 
 
 def train_background_model(background_frames: np.ndarray,
@@ -87,9 +88,10 @@ def stack_states(states: Sequence[gmm.MOGState]) -> gmm.MOGState:
 
 
 def stack_frozen(states: Sequence[gmm.MOGState], params: MOGParams,
-                 device="cpu") -> gmm.FrozenMOGState:
+                 device="cuda") -> gmm.FrozenMOGState:
     """Per-camera MOG states → one (C, H, W, Ke) compressed state on
     ``device``; all cameras share the largest prefix length."""
+    device = resolve_device(device)
     K = states[0].weight.shape[-1]
     fulls = [gmm.compress_frozen(s, params, k_eff=K)[0] for s in states]
     k_eff = max(max((int(f.bcount.max()) for f in fulls), default=1), 1)

@@ -104,11 +104,13 @@ def cached_projection_tables(
     return tables
 
 
-def from_numpy_state(state, device="cpu") -> MOGState:
+def from_numpy_state(state, device="cuda") -> MOGState:
     """Any object with ``weight``/``mean``/``var``/``nframes`` array
     attributes (e.g. the JAX package's ``MOGState`` after ``np.asarray``)
     → the port's ``MOGState`` on ``device``.  Cameras carry over with
     ``CameraParams.from_arrays(K, dist, rvec, tvec)``."""
+    device = resolve_device(device)
+
     def f32(a):  # a writable copy, so the tensor owns its memory
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
@@ -121,12 +123,14 @@ def from_numpy_state(state, device="cpu") -> MOGState:
     )
 
 
-def train_state_from_numpy(state, device="cpu") -> MOGTrainState:
+def train_state_from_numpy(state, device="cuda") -> MOGTrainState:
     """Any object with ``weight``/``sort_key``/``mean``/``var``/``nframes``
     array attributes in the training layout ((K, HW) / (3, K, HW); e.g.
     the JAX package's ``MOGTrainState`` after ``np.asarray``) → the port's
     ``MOGTrainState`` on ``device``, with the high-water mark ``used`` that
     the port's state carries computed from the weights and keys."""
+    device = resolve_device(device)
+
     def f32(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
@@ -166,7 +170,7 @@ def save_mog_state(path: str, state: MOGState) -> None:
     )
 
 
-def load_mog_state(path: str, device="cpu"):
+def load_mog_state(path: str, device="cuda"):
     """The saved state, or None when the file is missing or of another
     schema."""
     if not os.path.exists(path):
