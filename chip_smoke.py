@@ -161,6 +161,23 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      start and the first 50 Adam steps card vs CPU, the CUDA graph
      bit-equal to the eager steps, ms per step of both, and ``fix_pp``
      pinning cx and cy; the seconds of each part and the peak memory.
+ 20. extrinsic calibration on boards rendered on the card at the rig's
+     committed poses (``artifacts/auto_extrinsics``, 16 noisy frames per
+     camera over a seeded textured background, 120 background frames, a
+     person frame painted from ``artifacts/final``): ``auto_extrinsics``
+     (400 photometric steps, orientation voted) recovers every pose within
+     0.01 rad and 25 mm up to the global 180° frame; on cam1 the sheet,
+     ``detect_black_squares`` and ``photometric_refine`` card vs CPU (and
+     the CUDA graph bit-equal to the eager steps), the person masks and
+     the vote card vs CPU with camera 2's candidate flipped;
+     ``evaluate_pose_sets`` and ``hull_coverage`` /
+     ``carve_silhouette_ab`` at 64³ (each single-camera flip loses
+     coverage and voxels) card vs CPU; ``train_mog2`` and ``train_knn`` on
+     phase 10's sequences (MOG2 on a band of camera 1's rows and its mask,
+     KNN through the fill and ``apply_knn`` on the carried state, card vs
+     CPU), ``raw_masks_batched`` card vs CPU, and ``BackgroundPipeline``
+     from frames and from phase 14's npz models against the per-camera
+     calls; ms per update and per photometric step, seconds of each part.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -1243,7 +1260,8 @@ def seam_phase(torch, dev, kernels, r, mask_params, image_hw, sizes,
            f"{build_ms:.0f} ms, the second loaded the same tables in "
            f"{load_ms:.0f} ms")
     api.configure(None, None, None)
-    rig = SimpleNamespace(model=model, model_cpu=model_cpu, frames=frames)
+    rig = SimpleNamespace(model=model, model_cpu=model_cpu, frames=frames,
+                          models=models)
     return rig, {"size": list(size), "frames": RIG_FRAMES,
             "set_voxel_positions_ms": call_ms, "first_call_ms": ms[0],
             "split_ms": split_ms, "occupied_voxels": n_occ,
@@ -2321,13 +2339,14 @@ def calib_truth(cam, image_hw, views=None):
 
 
 def render_boards(torch, dev, K, dist, rvecs, tvecs, image_hw,
-                  ss=RENDER_SS):
+                  ss=RENDER_SS, background=None):
     """(V, H, W, 3) u8 BGR frames of the board at each pose, rendered on
     ``dev`` as ``tests/test_photometric_calibration.py::render_board``
     renders one: per sub-pixel sample the f64 ray through the undistorted
     pixel (25 fixed-point rounds) meets the board plane; black squares 25,
-    the board and its 0.7-square margin 235, beyond 90; the mean of
-    ``ss``² samples, truncated to u8."""
+    the board and its 0.7-square margin 235, beyond 90 (or the pixel of
+    the (H, W, 3) u8 ``background``); the mean of ``ss``² samples,
+    truncated to u8."""
     from vbr_tpu_torch.ops import camera as cam_ops
 
     H, W = image_hw
@@ -2342,6 +2361,8 @@ def render_boards(torch, dev, K, dist, rvecs, tvecs, image_hw,
     nrm = cam_ops.undistort_points(pix, torch.as_tensor(K, **f64),
                                    torch.as_tensor(dist, **f64), num_iters=25)
     d = torch.cat([nrm, torch.ones_like(nrm[..., :1])], -1)
+    if background is not None:
+        bgf = torch.as_tensor(background, **f64).reshape(-1, 3)
     out = []
     for rv, tv in zip(rvecs, tvecs):
         R = cam_ops.rodrigues(rv)
@@ -2356,8 +2377,14 @@ def render_boards(torch, dev, K, dist, rvecs, tvecs, image_hw,
         black = (torch.floor(u).long() + torch.floor(v).long()) % 2 == 0
         val = torch.where(inside & black, 25.0,
                           torch.where(margin, 235.0, 90.0)).to(torch.float64)
-        g = (val.sum(0) / ss / ss).reshape(H, W).to(torch.uint8)
-        out.append(g[..., None].expand(H, W, 3))
+        if background is None:
+            g = (val.sum(0) / ss / ss).reshape(H, W).to(torch.uint8)
+            out.append(g[..., None].expand(H, W, 3))
+        else:  # the samples off the sheet take the background's pixel
+            on = torch.where(margin, val, 0.0).sum(0)
+            off = (~margin).sum(0).to(torch.float64)
+            g = (on[:, None] + off[:, None] * bgf) / ss / ss
+            out.append(g.reshape(H, W, 3).to(torch.uint8))
     return torch.stack(out).cpu().numpy()
 
 
@@ -2675,12 +2702,362 @@ def calibration_phase(torch, dev, image_hw=CALIB_HW, views=None,
     return rep
 
 
+EXT_BOARD_FRAMES = 16  # checkerboard frames per camera
+EXT_BG_FRAMES = 120  # background frames per camera
+EXT_NOISE = 2.0  # σ of the board frames' seeded noise
+EXT_ITERS = 400  # photometric_refine's steps (``auto_extrinsics``' default)
+EXT_GRID = 64  # the edge of carve_silhouette_ab's grid
+# vbr_tpu's own bounds for a recovered pose (tests/test_auto_extrinsics.py)
+EXT_BOUND_RAD = 0.01
+EXT_BOUND_MM = 25.0
+EXT_MOG2_ROWS = 96  # rows of cam1 that MOG2 is held on against the CPU
+# photometric_refine card vs CPU: the reference's own spread under a
+# one-ulp change of the start is ~1e-15 rad and ~1e-12 mm, far below these
+EXT_REFINE_RAD = 1e-6
+EXT_REFINE_MM = 1e-3
+
+
+def rig_background(rng, image_hw):
+    """A seeded textured BGR image: 16-pixel blocks of one colour in
+    [80, 170] per channel plus ±6 per pixel, so the white sheet (235), the
+    black squares (25) and the dark subject (< 24) all differ from it by
+    more than the change thresholds (40, 35)."""
+    H, W = image_hw
+    blocks = rng.integers(80, 171, (-(-H // 16), -(-W // 16), 3))
+    img = np.repeat(np.repeat(blocks, 16, 0), 16, 1)[:H, :W]
+    img = img + rng.integers(-6, 7, (H, W, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def extrinsics_scene(torch, dev, image_hw, n_cams=4, bg_frames=EXT_BG_FRAMES,
+                     board_frames=EXT_BOARD_FRAMES):
+    """Phase 20's scene: the first ``n_cams`` cameras of ``RIG_DIR`` (K
+    scaled to ``image_hw``), each with a seeded textured background, its
+    background frames (the image ±4), its checkerboard frames (the board
+    rendered on ``dev`` at the committed pose over the background, seeded
+    noise of σ = ``EXT_NOISE``) and one person frame (the rig's silhouettes
+    painted over the background)."""
+    from vbr_tpu_torch.utils.config import CameraParams
+
+    rng = np.random.default_rng(SEED + 20)
+    arrays = [tuple(np.asarray(a, np.float64).reshape(-1) if i else a
+                    for i, a in enumerate(cam))
+              for cam in rig_cameras(image_hw)[:n_cams]]
+    bgs = np.stack([rig_background(rng, image_hw) for _ in arrays])
+    boards, backs = [], []
+    for (K, dist, rv, tv), bg in zip(arrays, bgs):
+        clean = render_boards(torch, dev, K, dist, [rv], [tv], image_hw,
+                              background=bg)[0]
+        noise = rng.standard_normal((board_frames,) + clean.shape,
+                                    dtype=np.float32) * EXT_NOISE
+        boards.append(np.clip(np.rint(clean + noise), 0, 255).astype(np.uint8))
+        jitter = rng.integers(-4, 5, (bg_frames,) + bg.shape, dtype=np.int8)
+        backs.append(np.clip(bg + jitter.astype(np.int16), 0, 255)
+                     .astype(np.uint8))
+    sils = rig_silhouettes(image_hw)[:n_cams]
+    return SimpleNamespace(
+        cams=[CameraParams.from_arrays(*a) for a in arrays], bgs=bgs,
+        boards=boards, backs=backs, sils=sils,
+        person=paint_silhouettes(rng, bgs, sils))
+
+
+def pose_errors(cams, truth):
+    """Per camera (rad, mm) of ``cams``' poses against ``truth``'s, in the
+    nearer of the two global board frames (camera 0 anchors the recovered
+    rig, so it may sit in the 180°-rotated frame): (errors, flipped)."""
+    from vbr_tpu_torch.pipelines.auto_extrinsics import flip_pose_180
+
+    def errs(flip):
+        out = []
+        for c, t in zip(cams, truth):
+            rv, tv = t.rvec, t.tvec
+            if flip:
+                rv, tv = flip_pose_180(rv, tv)
+            out.append((float(np.linalg.norm(c.rvec - rv)),
+                        float(np.linalg.norm(c.tvec - tv))))
+        return out
+
+    a, b = errs(False), errs(True)
+    flipped = sum(r for r, _ in b) < sum(r for r, _ in a)
+    return (b if flipped else a), flipped
+
+
+def extrinsics_phase(torch, dev, bg_seqs, tr_states, tr_params, frames,
+                     seeded_states, models_dir, rig_frame, mask_params,
+                     image_hw=RIG_HW, n_cams=4, iters=EXT_ITERS,
+                     bg_frames=EXT_BG_FRAMES, ab_grid=EXT_GRID):
+    """Phase 20 (see ``run``): extrinsic calibration on ``extrinsics_scene``
+    at ``image_hw`` with ``n_cams`` cameras, ``iters`` photometric steps and
+    ``bg_frames`` background frames, then MOG2, KNN, ``raw_masks_batched``
+    and ``BackgroundPipeline`` on phase 10's sequences ``bg_seqs``, its
+    trained states ``tr_states`` (``tr_params``) and the synthetic rig's
+    ``frames``, and on phase 14's seeded models (``seeded_states``, written
+    to ``models_dir``) with its ``rig_frame``.  Returns its report."""
+    from vbr_tpu_torch.ops import corners, gmm
+    from vbr_tpu_torch.pipelines import auto_extrinsics as ax
+    from vbr_tpu_torch.pipelines import background
+    from vbr_tpu_torch.pipelines import calibration as calib
+    from vbr_tpu_torch.pipelines import extrinsics_eval as ev
+    from vbr_tpu_torch.utils.config import GridConfig
+
+    cpu = torch.device("cpu")
+    sides = (("card", dev), ("cpu", cpu))  # "card" is ``dev``, whatever it is
+    t_phase = time.perf_counter()
+    reset_peak(torch, dev)
+    split = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + now - t_part
+        t_part = now
+
+    sc = extrinsics_scene(torch, dev, image_hw, n_cams, bg_frames)
+    truth = sc.cams
+    rep = {"image_hw": list(image_hw), "cameras": n_cams, "iters": iters}
+    part("scene")
+
+    # -- 1. auto_extrinsics on the card ----------------------------------
+    res, rep["auto_extrinsics_s"] = timed_s(lambda: ax.auto_extrinsics(
+        sc.boards, sc.backs, sc.person, truth, photometric_iters=iters,
+        device=dev), torch, dev)
+    errs, flipped = pose_errors(res.cameras, truth)
+    rep.update(n_blobs=res.n_blobs, n_matched=res.n_matched,
+               photometric_mse=res.photometric_mse, flips=res.flips,
+               votes={"".join("F" if f else "-" for f in k): v
+                      for k, v in res.votes.items()},
+               pose_err_rad=[e[0] for e in errs],
+               pose_err_mm=[e[1] for e in errs], global_flip=flipped)
+    print(f"  auto_extrinsics on {dev.type}: {rep['auto_extrinsics_s']:.2f}"
+          f" s; blobs {res.n_blobs}, matched {res.n_matched}, photometric "
+          f"MSE {np.round(res.photometric_mse, 2).tolist()}, flips "
+          f"{res.flips}, votes {sorted(res.votes.values(), reverse=True)}")
+    print("  pose errors against the committed rig (global frame "
+          f"{'flipped' if flipped else 'as committed'}): rad "
+          f"{[f'{e[0]:.2e}' for e in errs]}, mm "
+          f"{[f'{e[1]:.3f}' for e in errs]}")
+    if iters == EXT_ITERS:  # the production schedule's bounds
+        expect(all(r < EXT_BOUND_RAD and t < EXT_BOUND_MM for r, t in errs),
+               f"every recovered pose within {EXT_BOUND_RAD} rad and "
+               f"{EXT_BOUND_MM} mm of the committed rig")
+    part("auto_extrinsics")
+
+    # -- 2. cam1, stage by stage, the card against the CPU ---------------
+    K, dist = truth[0].K, truth[0].dist
+    gray = ax.temporal_mean_gray(sc.boards[0])
+    bg = ax.median_background(sc.backs[0])
+    sheets = []
+    for d in (dev, cpu):
+        region = ax.largest_change_region(bg, sc.boards[0][0], device=d)
+        hull = corners._convex_hull(
+            np.stack(np.nonzero(region)[::-1], -1).astype(np.float64))
+        sheets.append(ax.convex_fill(hull, gray.shape))
+    expect(np.array_equal(*sheets), f"cam1: the board sheet on {dev.type} "
+           f"and on the CPU equal ({int(sheets[0].sum())} pixels)")
+    t0 = time.perf_counter()
+    cents, thr = ax.detect_black_squares(gray, sheets[0])
+    rep["detect_black_squares_ms"] = (time.perf_counter() - t0) * 1e3
+    cents_c, thr_c = ax.detect_black_squares(gray, sheets[1])
+    expect(np.array_equal(cents, cents_c) and thr == thr_c,
+           f"cam1: detect_black_squares on the two sheets: the same "
+           f"{len(cents)} centroids and threshold {thr:.2f} "
+           f"({rep['detect_black_squares_ms']:.1f} ms)")
+    quad = ax.pattern_quad(gray, sheets[0])
+    _, ipts, _ = ax.orient_and_fit_homography(gray, quad, cents, K, dist)
+    obj = ev.board_object_points()
+    rv0, tv0 = calib.solve_pnp(obj, ipts, K, dist, device=dev)
+    refined = {}
+    for name, d, route in (("graph", dev, None), ("eager", dev, "eager"),
+                           ("cpu", cpu, None)):
+        if name == "eager" and dev.type != "cuda":
+            continue
+        refined[name], sec = timed_s(lambda: ax.photometric_refine(
+            gray, K, dist, rv0, tv0, 115.0, iters=iters, device=d,
+            route=route), torch, dev)
+        rep[f"refine_{name}_ms_per_step"] = sec * 1e3 / max(iters, 1)
+    if "eager" in refined:
+        expect(all(np.array_equal(a, b) for a, b in
+                   zip(refined["graph"], refined["eager"])),
+               f"cam1: {iters} photometric_refine steps replayed from the "
+               "CUDA graph bit-equal to the eager steps (pose and loss)")
+    (rv_g, tv_g, L_g), (rv_c, tv_c, L_c) = refined["graph"], refined["cpu"]
+    d_rad = float(np.abs(rv_g - rv_c).max())
+    d_mm = float(np.abs(tv_g - tv_c).max())
+    rep["refine_card_vs_cpu"] = {"rad": d_rad, "mm": d_mm,
+                                 "loss_rtol": rel_err(L_g, L_c)}
+    expect(d_rad <= EXT_REFINE_RAD and d_mm <= EXT_REFINE_MM,
+           f"cam1: photometric_refine on {dev.type} and the CPU within "
+           f"{d_rad:.1e} rad and {d_mm:.1e} mm (<= {EXT_REFINE_RAD}, "
+           f"{EXT_REFINE_MM}); loss rtol {rel_err(L_g, L_c):.1e}; ms/step "
+           + ", ".join(f"{k} {rep[f'refine_{k}_ms_per_step']:.3f}"
+                       for k in refined))
+    part("cam1 checks")
+
+    # the vote, card vs CPU, on the recovered poses with camera 2 flipped
+    cand = [(c.rvec, c.tvec) for c in res.cameras]
+    cand[1] = ax.flip_pose_180(*cand[1])
+    bgs = [ax.median_background(b) for b in sc.backs]
+    votes = {}
+    for side, d in sides:
+        masks = ax.quick_person_masks(bgs, sc.person, device=d)
+        (flips, v), sec = timed_s(lambda: ax.resolve_rig_orientation(
+            truth, cand, masks, device=d), torch, dev)
+        votes[side] = (masks, flips, v, sec)
+    (m_d, f_d, v_d, vote_s), (m_c, f_c, v_c, _) = votes["card"], votes["cpu"]
+    rep["vote_s"] = vote_s
+    expect(np.array_equal(m_d, m_c) and f_d == f_c and v_d == v_c
+           and f_d == [False, True] + [False] * (n_cams - 2),
+           f"quick_person_masks and resolve_rig_orientation on {dev.type} "
+           f"and on the CPU: masks, votes and flips equal; camera 2's "
+           f"flipped candidate flipped back ({vote_s:.2f} s, votes "
+           f"{sorted(v_d.values(), reverse=True)})")
+    part("vote")
+
+    # -- 3. extrinsics_eval ------------------------------------------------
+    aligned = [((ax.flip_pose_180(c.rvec, c.tvec)) if flipped
+                else (c.rvec, c.tvec)) for c in res.cameras]
+    committed = [(c.rvec, c.tvec) for c in truth]
+    grays = [ax.temporal_mean_gray(b) for b in sc.boards]
+    reps = {side: ev.evaluate_pose_sets(grays, truth, aligned, committed,
+                                        device=d) for side, d in sides}
+    ra, rb = reps["card"]
+    ca, cb_ = reps["cpu"]
+    rms_err = max(rel_err(ra.reproj_rms_px, ca.reproj_rms_px),
+                  rel_err(rb.reproj_rms_px, cb_.reproj_rms_px),
+                  rel_err(ra.triangulation_rms_mm, ca.triangulation_rms_mm),
+                  rel_err(rb.triangulation_rms_mm, cb_.triangulation_rms_mm))
+    rep["geometric"] = {"recovered": dataclasses.asdict(ra),
+                        "committed": dataclasses.asdict(rb),
+                        "card_vs_cpu_rtol": rms_err}
+    expect(ra.kept_corners == ca.kept_corners and rms_err <= 1e-6,
+           f"evaluate_pose_sets(recovered, committed) on {dev.type} and "
+           f"the CPU: kept corners {ra.kept_corners} equal, RMS within rtol "
+           f"{rms_err:.1e}; reprojection px recovered "
+           f"{np.round(ra.reproj_rms_px, 3).tolist()}, committed "
+           f"{np.round(rb.reproj_rms_px, 3).tolist()}; triangulation "
+           f"{ra.triangulation_rms_mm:.3f} / {rb.triangulation_rms_mm:.3f} mm")
+    part("evaluate_pose_sets")
+    grid = GridConfig(nx=ab_grid, ny=ab_grid, nz=ab_grid)
+    sil_u8 = sc.sils.astype(np.uint8) * 255
+    occ = {side: ev.hull_coverage(sil_u8, truth, grid, device=d)
+           for side, d in sides}
+    expect(np.array_equal(occ["card"][0], occ["cpu"][0])
+           and occ["card"][1] == occ["cpu"][1],
+           f"hull_coverage at {ab_grid}^3 under the committed poses on "
+           f"{dev.type} and the CPU: occupancy ({int(occ['cpu'][0].sum())} "
+           f"voxels) and coverages {np.round(occ['cpu'][1], 4).tolist()} "
+           "equal")
+    ab = []
+    for c in range(n_cams):
+        flip = list(committed)
+        flip[c] = ax.flip_pose_180(*flip[c])
+        r_d, r_c = (ev.carve_silhouette_ab(sil_u8, truth, committed, flip,
+                                           grid, device=d)
+                    for d in (dev, cpu))
+        expect(r_d == r_c and np.mean(r_d.coverage_b) < np.mean(
+            r_d.coverage_a) and r_d.voxels_b < r_d.voxels_a,
+               f"carve_silhouette_ab, camera {c + 1} flipped: reports equal "
+               f"on {dev.type} and the CPU; mean coverage "
+               f"{np.mean(r_d.coverage_a):.4f} -> "
+               f"{np.mean(r_d.coverage_b):.4f}, hull voxels {r_d.voxels_a} "
+               f"-> {r_d.voxels_b}")
+        ab.append(dataclasses.asdict(r_d))
+    rep["carve_ab"] = ab
+    part("carve_silhouette_ab")
+
+    # -- 4. MOG2 and KNN on phase 10's sequences ---------------------------
+    T, H, W = bg_seqs[0].shape[:3]
+    mog = {}
+    for c, seq in enumerate(bg_seqs):
+        mog[c], sec = timed_s(lambda: gmm.train_mog2(seq, device=dev),
+                              torch, dev)
+        rep.setdefault("mog2_ms_per_frame", []).append(sec * 1e3 / T)
+    rows = slice(max(H // 2 - EXT_MOG2_ROWS // 2, 0),
+                 H // 2 + EXT_MOG2_ROWS // 2)
+    band = gmm.train_mog2(bg_seqs[0][:, rows], device=cpu)
+    expect(all(torch.equal(getattr(mog[0], f)[rows].cpu(), getattr(band, f))
+               for f in ("weight", "mean", "var", "nmodes"))
+           and int(mog[0].nframes) == int(band.nframes) == T,
+           f"train_mog2 over {T} frames: camera 1's rows {rows.start}-"
+           f"{rows.stop - 1} bit-equal on {dev.type} and the CPU (weight, "
+           f"mean, var, nmodes); modes per pixel up to "
+           f"{int(mog[0].nmodes.max())}")
+    m2 = gmm.extract_mask_mog2(mog[0], frames[0])
+    m2_c = gmm.extract_mask_mog2(band, frames[0][rows])
+    expect(torch.equal(m2[rows].cpu(), m2_c),
+           f"extract_mask_mog2 on camera 1's rows: masks bit-equal "
+           f"({float((m2 > 0).float().mean()):.4f} foreground)")
+    kp = gmm.KNNParams()
+    n_fill = min(kp.n_samples, T)
+    fill = {side: gmm.train_knn(bg_seqs[0][:n_fill], device=d)
+            for side, d in sides}
+    expect(torch.equal(fill["card"].samples.cpu(), fill["cpu"].samples),
+           f"train_knn over the first {n_fill} frames (the round-robin "
+           f"fill): samples bit-equal on {dev.type} and the CPU")
+    knn = {}
+    for c, seq in enumerate(bg_seqs):
+        knn[c], sec = timed_s(lambda: gmm.train_knn(seq, device=dev), torch,
+                              dev)
+        rep.setdefault("knn_ms_per_frame", []).append(sec * 1e3 / T)
+    carried = gmm.KNNState(samples=knn[0].samples.cpu(),
+                           n_seen=knn[0].n_seen.cpu(),
+                           generator=torch.Generator())
+    k_d = gmm.extract_mask_knn(knn[0], frames[0])
+    expect(torch.equal(k_d.cpu(), gmm.extract_mask_knn(carried, frames[0])),
+           f"apply_knn on the card's state after {T} frames carried to the "
+           f"CPU: masks bit-equal ({float((k_d > 0).float().mean()):.4f} "
+           "foreground)")
+    print(f"  update ms/frame at {W}x{H}: MOG2 "
+          f"{np.round(rep['mog2_ms_per_frame'], 3).tolist()}, KNN "
+          f"{np.round(rep['knn_ms_per_frame'], 3).tolist()}")
+    part("mog2 knn")
+
+    # -- raw_masks_batched and BackgroundPipeline ---------------------------
+    stacked = background.stack_states(tr_states)
+    f_d = torch.from_numpy(frames).to(dev)
+    raw = background.raw_masks_batched(stacked, f_d, mask_params, tr_params)
+    raw_c = background.raw_masks_batched(
+        gmm.MOGState(*(t.cpu() for t in stacked)), torch.from_numpy(frames),
+        mask_params, tr_params)
+    expect(torch.equal(raw.cpu(), raw_c),
+           f"raw_masks_batched over {len(frames)} cameras on {dev.type} "
+           "and on the CPU equal")
+    pipes = {
+        "frames": (background.BackgroundPipeline(
+            num_cameras=len(bg_seqs), mask_params=mask_params,
+            background_frames=bg_seqs, device=dev), tr_states, frames),
+        "npz": (background.BackgroundPipeline(
+            models_dir, num_cameras=len(seeded_states),
+            mask_params=mask_params, device=dev),
+            [gmm.MOGState(*(t.to(dev) for t in s)) for s in seeded_states],
+            rig_frame),
+    }
+    for name, (pipe, states, fr) in pipes.items():
+        got = pipe.masks_for_frames(fr)
+        want = np.stack([background.extract_foreground_mask(
+            states[c], fr[c], mask_params[c], pipe.mog_params[c],
+            ccl_backend="host").cpu().numpy() for c in range(len(fr))])
+        expect(np.array_equal(got, want),
+               f"BackgroundPipeline from {name}: masks_for_frames equal to "
+               f"the per-camera calls on the {name} states "
+               f"({float((got > 0).mean()):.4f} foreground)")
+    part("pipelines")
+    rep["split_s"] = split
+    print("  phase 20 by part (s): " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in split.items()))
+    rep["peak_gb"] = peak_gb(torch, dev)
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
         seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW,
         large_edges=LARGE_EDGES, calib_hw=CALIB_HW, calib_views=None,
-        calib_iters=CALIB_ITERS):
+        calib_iters=CALIB_ITERS, ext_hw=RIG_HW, ext_cams=4,
+        ext_iters=EXT_ITERS, ext_bg_frames=EXT_BG_FRAMES, ext_grid=EXT_GRID):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
@@ -2691,7 +3068,10 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     by 8·sup), the large grids at the edges ``large_edges`` (the rig's
     steps, the 8-camera carve) and the calibration on boards rendered at
     ``calib_hw``, ``calib_views`` poses per camera (None: all) and
-    ``calib_iters`` Adam steps; returns the per-kernel report."""
+    ``calib_iters`` Adam steps, and the extrinsics on ``ext_cams`` of the
+    rig's cameras at ``ext_hw`` with ``ext_iters`` photometric steps,
+    ``ext_bg_frames`` background frames and a carve A/B grid of
+    ``ext_grid``³; returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -3017,7 +3397,6 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     expect(int(slots.min()) >= 1 and int(slots.max()) >= 2,
            f"slots filled per pixel: min {int(slots.min())}, mean "
            f"{float(slots.float().mean()):.2f}, max {int(slots.max())}")
-    del bg_seqs
 
     # -- [11] K4 ---------------------------------------------------------
     print(f"[11] K4 multi-frame carve vs its plain version ({OFFLINE_NF} "
@@ -3179,6 +3558,18 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                                     calib_iters)
     print(f"  phase 19 in {calibration['seconds']:.1f} s")
 
+    # -- [20] extrinsic calibration, MOG2 and KNN -------------------------
+    print(f"[20] extrinsic calibration on boards rendered at the rig's "
+          f"committed poses ({ext_cams} cameras at {ext_hw[1]}x{ext_hw[0]}, "
+          f"{ext_iters} photometric steps), extrinsics_eval, MOG2, KNN and "
+          "BackgroundPipeline", flush=True)
+    extrinsics = extrinsics_phase(
+        torch, dev, bg_seqs, model_tr.bg_states, model_tr.mog_params[0],
+        frame0, r.states, rig_models.models, rig_models.frames[0],
+        mask_params or DEFAULT_MASK_PARAMS, ext_hw, ext_cams, ext_iters,
+        ext_bg_frames, ext_grid)
+    print(f"  phase 20 in {extrinsics['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -3229,6 +3620,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "viewer": viewer,
         "large_grid": large,
         "calibration": calibration,
+        "extrinsics": extrinsics,
     }
 
 

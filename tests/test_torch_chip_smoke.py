@@ -62,7 +62,8 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             seam_sizes=((32, 16, 32), (20, 8, 16)),
                             roi_hw=(112, 128), large_edges=(64, 32),
                             calib_hw=(244, 322), calib_views=3,
-                            calib_iters=30)
+                            calib_iters=30, ext_hw=(243, 322), ext_cams=2,
+                            ext_iters=20, ext_bg_frames=8, ext_grid=32)
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -238,6 +239,34 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "cam1 with fix_pp, 30 steps: cx and cy pinned within 0.0e+00"):
         assert f"ok: {what}" in out
     assert "photometric fx and fy within 1 %" not in out  # production only
+    # phase 20: extrinsics on two cameras at 243x322, 20 photometric steps,
+    # MOG2 and KNN on phase 10's three frames
+    ext = report["extrinsics"]
+    assert ext["image_hw"] == [243, 322] and ext["cameras"] == 2
+    assert ext["iters"] == 20 and ext["flips"] == [False, False]
+    assert min(ext["n_blobs"]) >= 20 and min(ext["n_matched"]) >= 20
+    assert len(ext["votes"]) == 2 and len(ext["carve_ab"]) == 2
+    assert ext["refine_card_vs_cpu"] == {"rad": 0.0, "mm": 0.0,
+                                         "loss_rtol": 0.0}
+    assert len(ext["mog2_ms_per_frame"]) == len(ext["knn_ms_per_frame"]) == 4
+    for what in ("cam1: the board sheet on cpu and on the CPU equal",
+                 "cam1: detect_black_squares on the two sheets: the same",
+                 "cam1: photometric_refine on cpu and the CPU within 0.0e+00",
+                 "quick_person_masks and resolve_rig_orientation on cpu and "
+                 "on the CPU: masks, votes and flips equal",
+                 "evaluate_pose_sets(recovered, committed) on cpu and the CPU",
+                 "hull_coverage at 32^3 under the committed poses on cpu",
+                 "carve_silhouette_ab, camera 1 flipped: reports equal",
+                 "carve_silhouette_ab, camera 2 flipped: reports equal",
+                 "train_mog2 over 3 frames: camera 1's rows",
+                 "extract_mask_mog2 on camera 1's rows: masks bit-equal",
+                 "train_knn over the first 3 frames (the round-robin fill)",
+                 "apply_knn on the card's state after 3 frames carried",
+                 "raw_masks_batched over 4 cameras on cpu and on the CPU",
+                 "BackgroundPipeline from frames: masks_for_frames equal",
+                 "BackgroundPipeline from npz: masks_for_frames equal"):
+        assert f"ok: {what}" in out
+    assert "every recovered pose within" not in out  # production only
 
 
 def test_crossing_sweeps_meet_inside_every_band():

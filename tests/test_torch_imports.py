@@ -26,8 +26,10 @@ MODULES = [
     "vbr_tpu_torch.ops.marching_cubes",
     "vbr_tpu_torch.ops.morphology",
     "vbr_tpu_torch.ops.texturing",
+    "vbr_tpu_torch.pipelines.auto_extrinsics",
     "vbr_tpu_torch.pipelines.background",
     "vbr_tpu_torch.pipelines.calibration",
+    "vbr_tpu_torch.pipelines.extrinsics_eval",
     "vbr_tpu_torch.pipelines.photometric_calibration",
     "vbr_tpu_torch.pipelines.reconstruction",
     "vbr_tpu_torch.pipelines.validation",

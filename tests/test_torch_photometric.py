@@ -91,7 +91,7 @@ def jax_objective(views, init, samples_per_square, **kw):
 def test_label_matches_label_host_on_random_masks(seed):
     rng = np.random.default_rng(seed)
     m = rng.random(tuple(rng.integers(1, 70, 2))) < rng.uniform(0.2, 0.8)
-    got, n = tpc._label(m)
+    got, n = tpc._label_host(m)
     want, k = jauto._label_host(m)
     assert n == k
     np.testing.assert_array_equal(got, want)
@@ -105,7 +105,7 @@ def test_label_matches_label_host_on_rendered_boards(frames, i):
     dark = g < (jpc._box_mean(g, 63) - 14.0)
     er = (dark & np.roll(dark, 1, 0) & np.roll(dark, -1, 0)
           & np.roll(dark, 1, 1) & np.roll(dark, -1, 1))[::2, ::2]
-    got, n = tpc._label(er)
+    got, n = tpc._label_host(er)
     want, k = jauto._label_host(er)
     assert n == k >= 20
     np.testing.assert_array_equal(got, want)

@@ -9,8 +9,16 @@ the OpenCV-exact per-frame update ``_update_arrays``, the multi-frame loop
 ``_train_chunk``, kernel K3 (``train_chunk_kernel``: a whole chunk of
 frames per launch, ``csrc/mog_train.cu``, a pixel's used slots in shared
 memory for the chunk, found through the carried ``used`` mark) and
-``train_mog``.  MOG2 and KNN
-training are not ported yet.
+``train_mog``.  The reference's other two background models, as eager
+tensor code on the state's device: MOG2 (``MOG2Params``, ``MOG2State``,
+``init_mog2``, ``_mog2_pass``, ``update_mog2``, ``apply_mog2``,
+``train_mog2``, ``extract_mask_mog2``; OpenCV's Zivkovic update, one
+rounded f32 operation per JAX operation and every sum over the slots in
+slot order, so it equals ``vbr_tpu`` run op by op and does not depend on
+the device) and KNN (``KNNParams``, ``KNNState``, ``init_knn``,
+``update_knn``, ``apply_knn``, ``train_knn``, ``extract_mask_knn``; its
+random slot replacement draws from a ``torch.Generator`` on the state's
+device in place of ``jax.random``).
 
 The compressed apply is exact: a pixel is background iff some slot
 j < B = min(n_lead, k_fg) matches (‖x − μⱼ‖² < 6.25·Σvⱼ), so only the
@@ -22,6 +30,7 @@ uses, so the per-pixel bound B does not depend on a device's scan order.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -210,13 +219,23 @@ def _shift_down(arr: torch.Tensor, k_axis: int) -> torch.Tensor:
                      dim=k_axis)
 
 
-def _sum_slots(w: torch.Tensor) -> torch.Tensor:
-    """Σ over the K axis, slot 0 … K−1 in order: the order OpenCV and the
-    kernel use, independent of a device's reduction tree."""
-    s = w[0]
-    for k in range(1, w.shape[0]):
-        s = s + w[k]
-    return s
+def _sum_slots(w: torch.Tensor, axis: int = 0,
+               keepdim: bool = False) -> torch.Tensor:
+    """Σ over the K axis ``axis``, slot 0 … K−1 in order: the order OpenCV
+    and the kernel use (and XLA on a short axis), independent of a
+    device's reduction tree."""
+    s = w.select(axis, 0)
+    for k in range(1, w.shape[axis]):
+        s = s + w.select(axis, k)
+    return s.unsqueeze(axis) if keepdim else s
+
+
+def _cumsum_slots(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inclusive prefix sums over the K axis ``axis``, slot by slot."""
+    out = [w.select(axis, 0)]
+    for k in range(1, w.shape[axis]):
+        out.append(out[-1] + w.select(axis, k))
+    return torch.stack(out, dim=axis)
 
 
 def _update_arrays(w, key_s, mu, var, x, alpha, params: MOGParams,
@@ -304,10 +323,7 @@ def _update_arrays(w, key_s, mu, var, x, alpha, params: MOGParams,
 
     # training-mode mask: PRE-bubble hit index vs kForeground
     k_hit = torch.where(any_match, c, r)
-    cumw = [w4[0]]  # slot by slot, like the Σw above
-    for k in range(1, K):
-        cumw.append(cumw[-1] + w4[k])
-    over = torch.stack(cumw) > float(np.float32(params.bg_ratio))
+    over = _cumsum_slots(w4) > float(np.float32(params.bg_ratio))
     # kForeground stays -1 when the cumulative weight never exceeds the
     # ratio, which makes everything foreground: k_fg = 0
     k_fg = torch.where(over.any(dim=0),
@@ -464,3 +480,343 @@ def extract_mask(state: MOGState, frame,
     if params.use_hsv:
         frame_d = color_ops.bgr_to_hsv_u8(frame_d)
     return apply_frozen(state, frame_d, params)
+
+
+# ---------------------------------------------------------------------------
+# MOG2 (Zivkovic adaptive GMM) — the reference's train_MOG2_background_model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MOG2Params:
+    n_mixtures: int = 5
+    history: int = 500
+    # gates on the TOTAL squared distance: ||x−μ||² < T · var, var being the
+    # 3-channel-summed variance (OpenCV's)
+    var_threshold: float = 16.0  # Tb: background gate
+    var_threshold_gen: float = 9.0  # Tg: ownership gate for updates
+    bg_ratio: float = 0.9
+    var_init: float = 15.0
+    var_min: float = 4.0
+    var_max: float = 5.0 * 15.0
+    complexity_prune: float = 0.05  # cT
+    use_hsv: bool = True
+
+
+class MOG2State(NamedTuple):
+    weight: torch.Tensor  # (H, W, K) f32
+    mean: torch.Tensor  # (H, W, K, 3) f32
+    var: torch.Tensor  # (H, W, K) f32 — TOTAL (3-channel-summed) variance
+    nmodes: torch.Tensor  # (H, W) i32 — live mode count
+    nframes: torch.Tensor  # () i32
+
+
+def init_mog2(shape_hw, params: MOG2Params, device="cuda") -> MOG2State:
+    device = resolve_device(device)
+    H, W = shape_hw
+    K = params.n_mixtures
+    f32 = dict(dtype=torch.float32, device=device)
+    return MOG2State(
+        weight=torch.zeros((H, W, K), **f32),
+        mean=torch.zeros((H, W, K, 3), **f32),
+        var=torch.full((H, W, K), float(np.float32(params.var_init)), **f32),
+        nmodes=torch.zeros((H, W), dtype=torch.int32, device=device),
+        nframes=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _f32(x) -> float:
+    """A Python float holding ``x`` rounded to float32."""
+    return float(np.float32(x))
+
+
+def _bubble_k(arr, val, pos, src, on):
+    """The mode at ``src`` moved up to ``pos`` with value ``val`` (the
+    slots pos … src−1 shift down one) where ``on``; ``arr`` is (..., K)
+    or (..., K, 3)."""
+    if arr.ndim == pos.ndim + 1:  # (..., K)
+        k_axis = arr.ndim - 1
+        pp, cc, onb = pos[..., None], src[..., None], on[..., None]
+        vv = val[..., None] * torch.ones_like(arr)
+    else:  # (..., K, 3)
+        k_axis = arr.ndim - 2
+        pp, cc = pos[..., None, None], src[..., None, None]
+        onb = on[..., None, None]
+        vv = val
+    j = torch.arange(arr.shape[k_axis], device=arr.device)
+    if k_axis == arr.ndim - 2:
+        j = j[:, None]
+    moved = torch.where(j == pp, vv,
+                        torch.where((j > pp) & (j <= cc),
+                                    _shift_down(arr, k_axis), arr))
+    return torch.where(onb, moved, arr)
+
+
+def _mog2_pass(w, mu, var, nmodes, x, alphaT, params: MOG2Params):
+    """One pass of OpenCV's MOG2 per-pixel loop over every pixel at once
+    (``vbr_tpu``'s ``_mog2_pass``, operation for operation): modes in
+    storage order, the first within Tg·var owns the sample; visited modes
+    decay ``(1−α)w − α·cT`` (the owner gains α) and a visited non-owner
+    below α·cT is pruned, which shrinks the loop bound; the owner's mean
+    and total variance move by k = α/w'; the owner bubbles up past
+    strictly smaller weights; with no owner a new mode (replacing the last
+    slot when full) enters with weight α and bubbles; weights are
+    renormalized over the visited modes.  ``alphaT`` is a 0-dim f32 tensor;
+    0 is the frozen apply (no state change).  Background iff a visited
+    mode up to the owner with cumulative weight below ``bg_ratio`` lies
+    within Tb·var.
+
+    Returns (w, mu, var, nmodes, bg mask bool)."""
+    K = w.shape[-1]
+    dev = w.device
+    alpha1 = 1.0 - alphaT
+    prune_neg = -alphaT * _f32(params.complexity_prune)  # C++ 'prune' (≤ 0)
+    Tb = _f32(params.var_threshold)
+    Tg = _f32(params.var_threshold_gen)
+    TB = _f32(params.bg_ratio)
+
+    k_idx = torch.arange(K, device=dev)
+    diff = x[..., None, :] - mu  # (..., K, 3)
+    dist2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+             + diff[..., 2] * diff[..., 2])
+    fits_raw = dist2 < Tg * var
+
+    # decayed-unmatched weights and the would-prune flags (the owner is
+    # never pruned: its weight gains α > α·cT)
+    wd = alpha1 * w + prune_neg
+    would_prune = wd < -prune_neg
+
+    def processed_prefix(prunes):
+        """Mode k is processed iff k < nmodes − (#prunes among processed
+        j < k)."""
+        pc = torch.zeros_like(nmodes)
+        proc = []
+        for j in range(K):
+            pj = j < (nmodes - pc)
+            proc.append(pj)
+            pc = pc + (prunes[..., j] & pj).to(pc.dtype)
+        return torch.stack(proc, dim=-1)
+
+    # pass 1 — no owner among earlier modes (true up to the first fit)
+    proc1 = processed_prefix(would_prune)
+    c = torch.where(fits_raw & proc1, k_idx, K).amin(dim=-1)  # first fit
+    any_fit = c < K
+    is_hit = (k_idx == c[..., None]) & any_fit[..., None]
+
+    # pass 2 — the owner exempt from pruning
+    processed = processed_prefix(would_prune & ~is_hit)
+
+    # final per-slot weights (pre-bubble, pre-normalization)
+    wfin = torch.where(is_hit, wd + alphaT, wd)
+    pruned = processed & ~is_hit & (wfin < -prune_neg)
+    wfin = torch.where(pruned, 0.0, wfin)
+    wfin = torch.where(processed, wfin, w)  # truncated tail keeps stale w
+    nmodes1 = nmodes - pruned.sum(dim=-1).to(nmodes.dtype)
+
+    # owner content update (the old var in both gate and update)
+    w_hit_val = _sum_slots(torch.where(is_hit, wfin, 0.0), -1)
+    kk = alphaT / torch.clamp_min(w_hit_val, _f32(1e-30))
+    mu_upd = mu + kk[..., None, None] * diff
+    var_upd = torch.clamp(var + kk[..., None] * (dist2 - var),
+                          _f32(params.var_min), _f32(params.var_max))
+    mu1 = torch.where(is_hit[..., None], mu_upd, mu)
+    var1 = torch.where(is_hit, var_upd, var)
+
+    # background test before the reordering: visited modes up to the
+    # owner, cumulative pre-normalization weight below TB
+    wproc = torch.where(processed, wfin, 0.0)
+    cum_excl = _cumsum_slots(wproc, -1) - wproc
+    visited = processed & (k_idx <= c[..., None])
+    bg = (visited & (cum_excl < TB) & (dist2 < Tb * var)).any(dim=-1)
+
+    # owner bubble: strict `<` stop, so the blockers are the modes above
+    # with strictly LARGER (decayed) weight
+    blocker = (k_idx < c[..., None]) & (wfin > w_hit_val[..., None])
+    pos = torch.where(blocker, k_idx + 1, 0).amax(dim=-1)
+    hit_mu = _sum_slots(torch.where(is_hit[..., None], mu_upd, 0.0), -2,
+                    keepdim=True)
+    hit_var = _sum_slots(torch.where(is_hit, var_upd, 0.0), -1)
+    w2 = _bubble_k(wfin, w_hit_val, pos, c, any_fit)
+    mu2 = _bubble_k(mu1, hit_mu, pos, c, any_fit)
+    var2 = _bubble_k(var1, hit_var, pos, c, any_fit)
+
+    total = _sum_slots(wproc, -1)
+
+    # no owner → a new mode (training only: alphaT > 0)
+    no_fit = (~any_fit) & (alphaT > 0)
+    r = torch.clamp_max(nmodes1, K - 1)
+    nmodes2 = torch.where(no_fit, torch.clamp_max(nmodes1 + 1, K), nmodes1)
+    is_single = nmodes2 == 1
+    one = torch.ones_like(alphaT)
+    new_w = torch.where(is_single, one, alphaT)
+    total = torch.where(no_fit, torch.where(is_single, one, total + alphaT),
+                        total)
+    # the new mode written at slot r first (so the shift carries the old
+    # content), then bubbled (strict `<` stop again)
+    blocker2 = (k_idx < r[..., None]) & (w2 > new_w[..., None])
+    pos2 = torch.where(blocker2, k_idx + 1, 0).amax(dim=-1)
+    new_mu = x[..., None, :].expand(*mu2.shape[:-2], 1, 3)
+    put = no_fit[..., None] & (k_idx == r[..., None])
+    var_init = _f32(params.var_init)
+    w3 = torch.where(put, new_w[..., None], w2)
+    mu3 = torch.where(put[..., None], x[..., None, :], mu2)
+    var3 = torch.where(put, var_init, var2)
+    w4 = _bubble_k(w3, new_w, pos2, r, no_fit)
+    mu4 = _bubble_k(mu3, new_mu, pos2, r, no_fit)
+    var4 = _bubble_k(var3, torch.full_like(new_w, var_init), pos2, r, no_fit)
+
+    inv = torch.where(total > 0, torch.ones_like(total) / total, 0.0)
+    w5 = w4 * inv[..., None]
+    return w5, mu4, var4, nmodes2, bg
+
+
+def update_mog2(state: MOG2State, frame: torch.Tensor,
+                params: MOG2Params) -> MOG2State:
+    """One Zivkovic/OpenCV update on a (H, W, 3) u8 frame on the state's
+    device, learning rate α = 1/min(2·nframes, history) (as cv2)."""
+    nframes = state.nframes + 1
+    n = torch.clamp_max(2 * nframes, int(params.history)).to(torch.float32)
+    alphaT = torch.ones_like(n) / n
+    x = frame.to(torch.float32)
+    w, mu, var, nmodes, _ = _mog2_pass(
+        state.weight, state.mean, state.var, state.nmodes, x, alphaT, params)
+    return MOG2State(weight=w, mean=mu, var=var, nmodes=nmodes,
+                     nframes=nframes)
+
+
+def apply_mog2(state: MOG2State, frame: torch.Tensor,
+               params: MOG2Params) -> torch.Tensor:
+    """Frozen MOG2 inference (the α = 0 pass) → (H, W) u8 {0, 255}."""
+    x = frame.to(torch.float32)
+    alpha0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    bg = _mog2_pass(state.weight, state.mean, state.var, state.nmodes, x,
+                    alpha0, params)[4]
+    return torch.where(bg, 0, 255).to(torch.uint8)
+
+
+def train_mog2(frames, params: MOG2Params = MOG2Params(), chunk: int = 16,
+               device="cuda") -> MOG2State:
+    """MOG2 over a (T, H, W, 3) u8 BGR sequence on ``device``, frame by
+    frame; the frames go up ``chunk`` at a time."""
+    dev = resolve_device(device)
+    T, H, W, _ = frames.shape
+    state = init_mog2((H, W), params, dev)
+    for start in range(0, T, chunk):
+        part = torch.as_tensor(np.ascontiguousarray(frames[start:start + chunk]),
+                               dtype=torch.uint8).to(dev)
+        if params.use_hsv:
+            part = color_ops.bgr_to_hsv_u8(part)
+        for fr in part:
+            state = update_mog2(state, fr, params)
+    return state
+
+
+def extract_mask_mog2(state: MOG2State, frame,
+                      params: MOG2Params = MOG2Params()) -> torch.Tensor:
+    """Frozen MOG2 raw mask of a (H, W, 3) u8 BGR frame on the state's
+    device."""
+    frame_d = torch.as_tensor(frame, dtype=torch.uint8).to(state.weight.device)
+    if params.use_hsv:
+        frame_d = color_ops.bgr_to_hsv_u8(frame_d)
+    return apply_mog2(state, frame_d, params)
+
+
+# ---------------------------------------------------------------------------
+# KNN background model — the reference's train_KNN_background_model: a
+# per-pixel sample history; background iff at least ``k_neighbors`` stored
+# samples lie within ``dist2_threshold``.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KNNParams:
+    n_samples: int = 21
+    k_neighbors: int = 2
+    dist2_threshold: float = 400.0
+    history: int = 500
+    use_hsv: bool = True
+
+
+class KNNState(NamedTuple):
+    samples: torch.Tensor  # (H, W, N, 3) f32
+    n_seen: torch.Tensor  # () i32
+    generator: torch.Generator  # on the samples' device: slot replacement
+
+
+def init_knn(shape_hw, params: KNNParams, seed: int = 0,
+             device="cuda") -> KNNState:
+    device = resolve_device(device)
+    H, W = shape_hw
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return KNNState(
+        samples=torch.full((H, W, params.n_samples, 3), -1e6,
+                           dtype=torch.float32, device=device),
+        n_seen=torch.zeros((), dtype=torch.int32, device=device),
+        generator=gen,
+    )
+
+
+def update_knn(state: KNNState, frame: torch.Tensor,
+               params: KNNParams) -> KNNState:
+    """Per-pixel sample update: the first N frames fill the slots round
+    robin; afterwards each pixel replaces a uniformly drawn slot with
+    probability N/min(n_seen, history).  The draws advance the state's
+    generator on every frame."""
+    x = frame.to(torch.float32)
+    n_seen = state.n_seen + 1
+    N = params.n_samples
+    H, W = x.shape[:2]
+    dev = x.device
+    fill_slot = (n_seen - 1) % N
+    n = torch.clamp_max(n_seen, int(params.history)).to(torch.float32)
+    p_replace = torch.full_like(n, N) / n
+    rand_slot = torch.randint(0, N, (H, W), generator=state.generator,
+                              device=dev)
+    do_replace = torch.rand((H, W), generator=state.generator,
+                            device=dev) < p_replace
+    filling = n_seen <= N
+    slot = torch.where(filling, fill_slot, rand_slot)
+    replace = filling | do_replace
+    sel = (torch.arange(N, device=dev) == slot[..., None]) & replace[..., None]
+    samples = torch.where(sel[..., None], x[..., None, :], state.samples)
+    return KNNState(samples=samples, n_seen=n_seen,
+                    generator=state.generator)
+
+
+def apply_knn(state: KNNState, frame: torch.Tensor,
+              params: KNNParams) -> torch.Tensor:
+    """(H, W) u8 {0, 255}: foreground unless ``k_neighbors`` samples lie
+    within ``dist2_threshold`` of the pixel."""
+    x = frame.to(torch.float32)
+    d = x[..., None, :] - state.samples
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    close = (d2 < params.dist2_threshold).sum(dim=-1)
+    return torch.where(close >= params.k_neighbors, 0, 255).to(torch.uint8)
+
+
+def train_knn(frames, params: KNNParams = KNNParams(), chunk: int = 16,
+              seed: int = 0, device="cuda") -> KNNState:
+    """KNN over a (T, H, W, 3) u8 BGR sequence on ``device``, frame by
+    frame, the replacement draws seeded by ``seed``."""
+    dev = resolve_device(device)
+    T, H, W, _ = frames.shape
+    state = init_knn((H, W), params, seed, dev)
+    for start in range(0, T, chunk):
+        part = torch.as_tensor(np.ascontiguousarray(frames[start:start + chunk]),
+                               dtype=torch.uint8).to(dev)
+        if params.use_hsv:
+            part = color_ops.bgr_to_hsv_u8(part)
+        for fr in part:
+            state = update_knn(state, fr, params)
+    return state
+
+
+def extract_mask_knn(state: KNNState, frame,
+                     params: KNNParams = KNNParams()) -> torch.Tensor:
+    """KNN raw mask of a (H, W, 3) u8 BGR frame on the state's device."""
+    frame_d = torch.as_tensor(frame, dtype=torch.uint8).to(
+        state.samples.device)
+    if params.use_hsv:
+        frame_d = color_ops.bgr_to_hsv_u8(frame_d)
+    return apply_knn(state, frame_d, params)

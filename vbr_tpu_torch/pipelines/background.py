@@ -8,21 +8,27 @@ Counterpart of ``vbr_tpu/pipelines/background.py``:
 ``raw_masks_batched_fz`` (HSV + compressed frozen apply + per-camera
 pre-morphology), its ROI form ``raw_masks_batched_fz_roi`` with
 ``paste_rois`` (the windowed reduced-byte ingest),
-``finalize_masks_batched`` (per-camera post-morphology + binarize) and
+``finalize_masks_batched`` (per-camera post-morphology + binarize),
+``raw_masks_batched`` (the same head on the uncompressed states),
 ``extract_foreground_mask`` (one camera's whole mask stage, with its three
-cleanup routes).
+cleanup routes) and ``BackgroundPipeline`` (per-camera models from npz
+files or background frames, and their masks).  The pipeline's decoder
+branch (``background.avi`` read when no model is cached) is not ported:
+frames come as arrays.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from vbr_tpu_torch.ops import ccl, gmm, morphology
 from vbr_tpu_torch.ops import color as color_ops
-from vbr_tpu_torch.utils.config import MaskParams, MOGParams
+from vbr_tpu_torch.utils.config import (DEFAULT_MASK_PARAMS, MaskParams,
+                                        MOGParams)
 from vbr_tpu_torch.utils.device import resolve_device
 
 
@@ -75,6 +81,81 @@ def extract_foreground_mask(
             (float(mask_params.inner_threshold),))
         cleaned = host() if bool(ovf[0]) else batch[0]  # exact redo
     return finalize_masks_batched(cleaned[None], (mask_params,))[0]
+
+
+class BackgroundPipeline:
+    """Per-camera background models and per-frame mask extraction (the
+    reference's ``set_voxel_positions`` initialization: one model per
+    camera, history = its frame count).
+
+    Camera c's model (1-based file names) is ``cache_dir/mog_cam{c}.npz``
+    where that file exists (schema 2, as either package writes it), else
+    trained on ``device`` from ``background_frames[c - 1]`` ((T, H, W, 3)
+    u8 BGR) and written to the cache when ``cache_dir`` is given.  A
+    camera with neither raises ``ValueError``: no video is opened."""
+
+    def __init__(
+        self,
+        cache_dir: Optional[str] = None,
+        num_cameras: int = 4,
+        mask_params: Sequence[MaskParams] = DEFAULT_MASK_PARAMS,
+        mog_params: Optional[MOGParams] = None,
+        background_frames=None,
+        device="cuda",
+    ):
+        from vbr_tpu_torch.utils import artifacts
+
+        dev = resolve_device(device)
+        self.mask_params = list(mask_params)
+        self.states: List[gmm.MOGState] = []
+        self.mog_params: List[MOGParams] = []
+        for cam in range(1, num_cameras + 1):
+            cache_path = (os.path.join(cache_dir, f"mog_cam{cam}.npz")
+                          if cache_dir else None)
+            state = (artifacts.load_mog_state(cache_path, device=dev)
+                     if cache_path else None)
+            if state is not None:
+                p = mog_params or MOGParams(history=int(state.nframes))
+            elif background_frames is not None:
+                frames = background_frames[cam - 1]
+                p = mog_params or MOGParams(history=frames.shape[0])
+                state = train_background_model(frames, p, device=dev)
+                if cache_path:
+                    artifacts.save_mog_state(cache_path, state)
+            else:
+                raise ValueError(
+                    f"camera {cam}: no background model "
+                    f"({cache_path or 'no cache_dir'}) and no background "
+                    "frames; pass cache_dir= with mog_cam{c}.npz files or "
+                    "background_frames=")
+            self.states.append(state)
+            self.mog_params.append(p)
+
+    def masks_for_frames(self, frames,
+                         ccl_backend: str = "host") -> np.ndarray:
+        """(C, H, W, 3) u8 BGR → (C, H, W) u8 {0, 255} cleaned masks."""
+        return np.stack([
+            extract_foreground_mask(self.states[c], frame,
+                                    self.mask_params[c], self.mog_params[c],
+                                    ccl_backend=ccl_backend).cpu().numpy()
+            for c, frame in enumerate(frames)])
+
+
+def raw_masks_batched(stacked: gmm.MOGState, frames: torch.Tensor,
+                      mask_params: Sequence,
+                      mog_params: MOGParams) -> torch.Tensor:
+    """(C, H, W, 3) u8 BGR → (C, H, W) u8 raw masks with pre-morphology,
+    each camera's frozen apply on its uncompressed state of the stacked
+    (leading camera axis) ``stacked``."""
+    x = color_ops.bgr_to_hsv_u8(frames) if mog_params.use_hsv else frames
+    raw = torch.stack([
+        gmm.apply_frozen(gmm.MOGState(weight=stacked.weight[c],
+                                      mean=stacked.mean[c],
+                                      var=stacked.var[c],
+                                      nframes=stacked.nframes[c]),
+                         x[c], mog_params)
+        for c in range(frames.shape[0])])
+    return _pre_morphology(raw, mask_params)
 
 
 def stack_states(states: Sequence[gmm.MOGState]) -> gmm.MOGState:

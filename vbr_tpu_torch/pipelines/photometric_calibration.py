@@ -9,9 +9,8 @@ collection and a corner-LM warm start.
 
 The host stages are copies of the JAX package's numpy code
 (``suppress_overlay``, ``adaptive_dark_blobs``, ``grow_black_lattice``,
-``board_view_from_frame``, ``_zhang_poses``); the blobs are labelled with
-``scipy.ndimage.label`` (4-connected, numbered in raster order of their
-first pixel, as ``vbr_tpu``'s two-pass labeller numbers them).  The
+``board_view_from_frame``, ``_zhang_poses``); the blobs are labelled by
+``auto_extrinsics._label_host``, as ``vbr_tpu`` labels them.  The
 per-(frame, sample) support of the loss is computed on the host in f64 from
 the warm start, as in ``vbr_tpu``.
 
@@ -45,6 +44,7 @@ import scipy.ndimage
 import torch
 
 from vbr_tpu_torch.ops import camera as cam_ops
+from vbr_tpu_torch.pipelines.auto_extrinsics import _label_host
 from vbr_tpu_torch.utils.device import resolve_device
 
 _PATTERN = (8, 6)  # inner corners (cols, rows) -> 9x7 squares
@@ -98,13 +98,6 @@ def _box3(a: np.ndarray) -> np.ndarray:
 # black-square blob lattice (background-free, whole image)
 # ---------------------------------------------------------------------------
 
-def _label(mask: np.ndarray) -> Tuple[np.ndarray, int]:
-    """4-connected labels (int32) of a bool image, numbered 1.. in raster
-    order of each component's first pixel, and their count."""
-    labels, n = scipy.ndimage.label(mask)
-    return labels.astype(np.int32), int(n)
-
-
 def adaptive_dark_blobs(
     gray: np.ndarray,
     win: int = 63,
@@ -122,7 +115,7 @@ def adaptive_dark_blobs(
           & np.roll(dark, 1, 0) & np.roll(dark, -1, 0)
           & np.roll(dark, 1, 1) & np.roll(dark, -1, 1))
     # labelled at half resolution, centroids at full resolution
-    labels2, n = _label(er[::2, ::2])
+    labels2, n = _label_host(er[::2, ::2])
     if n == 0:
         return np.zeros((0, 2))
     cents = []
@@ -652,7 +645,8 @@ class PhotometricProblem:
                 st.k.add_(1)
 
         if route == "graph" and total:
-            step = _capture(step, st)
+            step = _capture(step, (st.p, st.m, st.v, st.t, st.lr, st.k,
+                                   st.curve))
         clock = _Clock(dev)
         for n, groups in stages:
             with torch.no_grad():
@@ -724,12 +718,11 @@ class _AdamState:
     curve: torch.Tensor
 
 
-def _capture(step, st: _AdamState):
+def _capture(step, buffers: Sequence[torch.Tensor]):
     """``step`` captured in a CUDA graph: a few warm-up steps on a side
-    stream (their effect on ``st`` undone), then the capture; returns the
-    replay."""
-    keep = [x.detach().clone() for x in (st.p, st.m, st.v, st.t, st.lr, st.k,
-                                         st.curve)]
+    stream (their effect on the tensors ``buffers`` that it writes
+    undone), then the capture; returns the replay."""
+    keep = [x.detach().clone() for x in buffers]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -740,8 +733,7 @@ def _capture(step, st: _AdamState):
     with torch.cuda.graph(graph):
         step()
     with torch.no_grad():
-        for x, saved in zip((st.p, st.m, st.v, st.t, st.lr, st.k, st.curve),
-                            keep):
+        for x, saved in zip(buffers, keep):
             x.copy_(saved)
     return graph.replay
 
