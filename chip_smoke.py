@@ -178,6 +178,27 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      CPU), ``raw_masks_batched`` card vs CPU, and ``BackgroundPipeline``
      from frames and from phase 14's npz models against the per-camera
      calls; ms per update and per photometric step, seconds of each part.
+ 21. the sharded production step (``vbr_tpu_torch/parallel``) on phase
+     14's rig at its 128³ grid: (a) a one-rank NCCL group from a
+     ``FileStore`` in a temporary directory and its (1, 1, 1) mesh;
+     ``ShardedRunner`` with each superblock order (``"contiguous"``,
+     ``"strided"``, ``"cost"``) over the 8 rig frames through ``__call__``
+     and ``stream(depth=2)`` and after a ``rebalance``, bit-equal to
+     ``process_frame_fast(layout="blocked")``, its K1 and K2 launches
+     counted (``launches_sharded`` in the kernel rows: the strided run),
+     the step's overflow bits equal to the single-device step's, ms per
+     frame beside ``process_frame_fast``; ``extract_mesh_sharded`` equal to
+     ``extract_mesh``, ``sharded_carve_step`` to ``carve_from_tables`` and
+     ``sharded_pipeline_step`` (cleanup off and on) to the one-device
+     apply, opening (cleanup) and table carve; the group destroyed.  (b)
+     2, 4 and 8 shards emulated on the card for each order: every shard's
+     ``local_table_slice`` carved by K1 (held against its plain version),
+     the union bit-equal to the unsharded K1, per-shard K1 ms (max and
+     mean) beside the unsharded K1; the same on phase 18's 8-camera 512³
+     tables (kept from that phase); K2 on the 1, 2 and 4 images a shard
+     labels at ``cam`` = 4, 2 and 1, equal to its plain version on the CPU.
+     NCCL refuses two ranks on one card, so no collective of more than
+     one rank runs here.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -1953,11 +1974,13 @@ def f64_words(cb, carve, cams, grid, image_hw, gidx):
 
 
 def large_grid_phase(torch, dev, kernels, flush, model, rig, image_hw,
-                     edges=LARGE_EDGES):
+                     edges=LARGE_EDGES, keep=None):
     """Phase 18: large grids (see ``run``) on ``model`` (the synthetic rig
     at phase 3's grid), ``rig`` (phase 14's models and frames) and a
     synthetic 8-camera rig; ``edges`` are the grid edges of the rig's
-    steps (256) and of the 8-camera carve (512).  Returns its report."""
+    steps (256) and of the 8-camera carve (512).  With a dict ``keep``, the
+    8-camera carve's tables, masks, colour frame and view threshold stay
+    in it (for phase 21).  Returns its report."""
     from vbr_tpu_torch.models.visual_hull import VisualHull
     from vbr_tpu_torch.ops import carve
     from vbr_tpu_torch.ops import carve_blocked as cb
@@ -2281,6 +2304,8 @@ def large_grid_phase(torch, dev, kernels, flush, model, rig, image_hw,
         "k1_bound_ms": k1.bound, "k1_bound_by": k1.bound_by,
         "k1_active": k1.active, "k1_launch": k1_plan,
         "blocked_ms": blocked_ms, "table_ms": table_ms, "fused_ms": fused_ms}
+    if keep is not None:
+        keep.update(btab=btab, masks=masks_d, image=image, views_threshold=vt)
     del btab, pt, fused, masks_d, frames_d, image, k1_args, active, full
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3051,6 +3076,257 @@ def extrinsics_phase(torch, dev, bg_seqs, tr_states, tr_params, frames,
     return rep
 
 
+SHARD_COUNTS = (2, 4, 8)  # phase 21's emulated shard counts on one card
+SHARD_ORDERS = ("contiguous", "strided", "cost")
+
+
+def emulate_shards(torch, dev, flush, btab, masks, image, vt, what,
+                   shard_counts=SHARD_COUNTS, hold_plain=True):
+    """Phase 21(b) on one grid: at each shard count and superblock order,
+    every shard's local program on this card (``local_table_slice`` of
+    ``btab`` + all C ``masks`` → kernel K1, each shard held against K1's
+    plain version where ``hold_plain``); the union of the shards,
+    unshuffled, bit-equal to the unsharded K1.  Returns the report: the
+    unsharded K1 ms and per count and order the shards' K1 ms (max, mean)
+    and the predicted imbalance of ``superblock_costs``."""
+    from vbr_tpu_torch.ops import carve_blocked as cb
+    from vbr_tpu_torch.parallel import pallas_sharded as ps
+
+    kw = dict(color_camera=btab.color_camera, views_threshold=vt)
+
+    def k1_args(t):
+        active, full = cb.block_activity(masks, vt, t.allv, t.ry, t.rx)
+        return (t.pk, t.lcc, active, full, masks, image)
+
+    whole = k1_args(btab)
+    want = cb.carve_blocked_kernel(*whole, **kw)
+    whole_ms = timed_ms(lambda: cb.carve_blocked_kernel(*whole, **kw), torch,
+                        dev, reps=5, flush=flush)
+    costs = ps.superblock_costs(btab, masks, vt)
+    report = {"grid": list(btab.grid_shape), "cameras": btab.num_cameras,
+              "nsuper": btab.nsuper, "whole_k1_ms": whole_ms, "shards": {}}
+    err = 0.0
+    print(f"  [21b] {what}: unsharded K1 {whole_ms:.4f} ms over "
+          f"{btab.nsuper} superblocks", flush=True)
+    for S in shard_counts:
+        for mode in SHARD_ORDERS:
+            order = ps.superblock_order(
+                btab.nsuper, S, mode, costs=costs if mode == "cost" else None)
+            parts, ms = [], []
+            for k in range(S):
+                args = k1_args(ps.local_table_slice(btab, k, S, order))
+                got = cb.carve_blocked_kernel(*args, **kw)
+                if hold_plain:
+                    plain = cb.carve_blocked_plain(*args, **kw)
+                    expect(all(torch.equal(a, b) for a, b in zip(got, plain)),
+                           f"{what}: shard {k} of {S} ({mode}) K1 bit-equal "
+                           "to its plain version")
+                    err = max(err, max_abs_err(zip(got, plain)))
+                ms.append(timed_ms(lambda: cb.carve_blocked_kernel(*args, **kw),
+                                   torch, dev, reps=5, flush=flush))
+                parts.append(got)
+                del args
+            occ_u, col_u = ps.unshuffle_blocked(
+                torch.cat([o for o, _ in parts])[None],
+                torch.cat([c for _, c in parts])[None], btab, order)
+            del parts
+            expect(torch.equal(occ_u[0], want[0])
+                   and torch.equal(col_u[0], want[1]),
+                   f"{what}: the union of {S} shards ({mode}) equals the "
+                   "unsharded K1 bit for bit")
+            del occ_u, col_u
+            c = np.zeros(len(order))
+            c[:btab.nsuper] = costs
+            per = c[order].reshape(S, -1).sum(axis=1)
+            row = {"max_ms": max(ms), "mean_ms": float(np.mean(ms)),
+                   "predicted_imbalance": float(per.max() / per.mean())}
+            report["shards"][f"{S}/{mode}"] = row
+            print(f"    {S} shards, {mode:10s}: K1 per shard max "
+                  f"{row['max_ms']:.4f} ms, mean {row['mean_ms']:.4f} ms "
+                  f"(predicted imbalance {row['predicted_imbalance']:.3f})")
+    return report, err
+
+
+def sharded_phase(torch, dev, kernels, flush, rig, stretch=None):
+    """Phase 21: the sharded production step (see ``run``) on phase 14's
+    rig models and frames ``rig``, and the emulated shards also on phase
+    18's largest tables ``stretch`` (a dict, when it kept them).  Returns
+    its report and the max abs error of the shards' K1 and K2 against
+    their plain versions."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vbr_tpu_torch.ops import carve as carve_ops
+    from vbr_tpu_torch.ops import ccl, ccl_label, gmm, morphology
+    from vbr_tpu_torch.ops import marching_cubes as mc
+    from vbr_tpu_torch.ops.color import bgr_to_hsv_u8
+    from vbr_tpu_torch.parallel import (carve_sharded, mesh_sharded,
+                                        pallas_sharded, pipeline_sharded)
+    from vbr_tpu_torch.pipelines import background
+
+    model, frames = rig.model, rig.frames
+    vt, cc = model.rig.views_threshold, model.rig.color_camera
+    report = {}
+    ref = [model.process_frame_fast(f, layout="blocked") for f in frames]
+    sync(torch, dev)
+
+    # -- [21a] one rank, through the real runner ---------------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, no peers
+    store = tempfile.mkdtemp(prefix="vbr_store_")
+    t0 = time.perf_counter()
+    carve_sharded.init_rank_group(os.path.join(store, "store"),
+                                  device=dev.type)
+    try:
+        mesh = carve_sharded.make_carve_mesh(num_cameras=4, frame_batch=1,
+                                             device=dev.type)
+        backend = dist.get_backend()
+        print(f"  [21a] one-rank {backend} group and mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        expect(tuple(mesh.shape) == (1, 1, 1), f"mesh {mesh.shape}")
+        batches = [f[None] for f in frames]
+        runner_launches, runner_ms = {}, {}
+        for mode in SHARD_ORDERS:
+            runner = model.sharded_runner(
+                mesh, order=mode,
+                costing_frames=frames[0] if mode == "cost" else None)
+            for k in kernels:
+                k.launches = 0
+            outs = [runner(b) for b in batches]
+            sync(torch, dev)
+            launches = {k.source.stem: k.launches for k in kernels}
+            streamed = list(runner.stream(iter(batches), depth=2))
+            replaced = runner.rebalance(frames[4], min_gain=0.0)
+            after = runner(batches[4])
+            same = all(np.array_equal(o[0][0], r[0].cpu().numpy())
+                       and np.array_equal(o[1][0], r[1].cpu().numpy())
+                       for o, r in zip(outs, ref))
+            same_stream = all(
+                np.array_equal(s[0], o[0]) and np.array_equal(s[1], o[1])
+                for s, o in zip(streamed, outs))
+            expect(same and same_stream and len(streamed) == len(outs)
+                   and np.array_equal(after[0], outs[4][0])
+                   and np.array_equal(after[1], outs[4][1])
+                   and (dev.type == "cpu"
+                        or launches["carve_blocked"] >= len(frames)
+                        <= launches["ccl_combined"]),
+                   f"ShardedRunner(order={mode!r}) on {len(frames)} rig "
+                   "frames equal to process_frame_fast(layout='blocked') bit "
+                   "for bit, through __call__ and stream(depth=2), and after "
+                   f"a rebalance (re-placed: {replaced}); launches {launches}")
+            runner_launches[mode] = launches
+            # the step's overflow bits against the single-device step's
+            step_out = runner._step(
+                pallas_sharded.place_frames(mesh, batches[0]),
+                *runner._static_in, runner._st.tables)
+            _, _, ovf1 = model._step(model._frames(frames[0]), "blocked",
+                                     "blocked")
+            expect(torch.equal(step_out[2][0].cpu(), ovf1.cpu()),
+                   f"sharded step overflow bits {step_out[2].tolist()} equal "
+                   "the single-device step's")
+            runner_ms[mode] = timed_ms(lambda: runner(batches[0]), torch, dev,
+                                       reps=10)
+        fast_ms = timed_ms(
+            lambda: [x.cpu() for x in model.process_frame_fast(
+                frames[0], layout="blocked")], torch, dev, reps=10)
+        print(f"  runner ms/frame (one rank, host clock to numpy): "
+              f"{runner_ms}; process_frame_fast + download {fast_ms:.3f}")
+        report["runner"] = {"launches": runner_launches, "ms": runner_ms,
+                            "process_frame_fast_ms": fast_ms,
+                            "backend": backend}
+
+        occ0 = carve_ops.to_host(model.process_frame_fast(frames[0])[0])
+        vol = occ0.reshape(model.grid.shape)
+        tris_s, n_s = mesh_sharded.extract_mesh_sharded(vol, mesh)
+        tris_r, n_r = mc.extract_mesh(vol, device=dev)
+        expect(n_s == n_r > 0 and np.array_equal(tris_s, tris_r),
+               f"extract_mesh_sharded equals extract_mesh ({n_r} triangles)")
+
+        t = model.tables
+        masks0 = model.masks(frames[0])
+        frames0 = torch.from_numpy(frames[0]).to(dev)
+        occ_s, col_s = carve_sharded.sharded_carve_step(
+            mesh, views_threshold=vt, color_camera=cc)(
+            *carve_sharded.shard_inputs(mesh, masks0[None], frames[0:1],
+                                        t.valid, t.lin_idx))
+        occ_t, col_t = carve_ops.carve_from_tables(
+            masks0, frames0, t.valid, t.lin_idx, views_threshold=vt,
+            color_camera=cc)
+        expect(torch.equal(occ_s[0], occ_t) and torch.equal(col_s[0], col_t),
+               f"sharded_carve_step equals carve_from_tables "
+               f"({int(occ_t.sum())} occupied)")
+
+        states = model.bg_states
+        w, mu, var = (torch.stack([getattr(s, f).to(dev) for s in states])
+                      for f in ("weight", "mean", "var"))
+        hsv0 = bgr_to_hsv_u8(frames0)
+        p = model.mog_params[0]
+        fig = [m.figure_threshold for m in model.mask_params]
+        inner = [m.inner_threshold for m in model.mask_params]
+        pipe = {}
+        for clean in (False, True):
+            thr = dict(fig_thr=fig, inner_thr=inner) if clean else {}
+            occ_p = pipeline_sharded.sharded_pipeline_step(
+                mesh, views_threshold=vt, mog_params=p, clean=clean)(
+                *pipeline_sharded.place_pipeline_inputs(
+                    mesh, hsv0[None], w, mu, var, t.valid, t.lin_idx, **thr))
+            ms = []
+            for c in range(len(states)):
+                m = morphology.opening(gmm.apply_frozen(
+                    gmm.MOGState(w[c], mu[c], var[c], states[c].nframes),
+                    hsv0[c], p), (3, 3))
+                ms.append(ccl.clean_mask(m, fig[c], inner[c]) if clean else m)
+            occ_r, _ = carve_ops.carve_from_tables(
+                torch.stack(ms), frames0, t.valid, t.lin_idx,
+                views_threshold=vt, color_camera=cc)
+            pipe[clean] = int(occ_r.sum())
+            expect(torch.equal(occ_p[0], occ_r),
+                   f"sharded_pipeline_step(clean={clean}) equals the "
+                   f"one-device apply, opening{', cleanup' if clean else ''} "
+                   f"and table carve ({pipe[clean]} occupied)")
+        del w, mu, var
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # -- [21b] 2, 4 and 8 shards on one card --------------------------------
+    frame_d = torch.from_numpy(frames[0]).to(dev)
+    image = frame_d[cc].contiguous()
+    emul, k1_err = emulate_shards(torch, dev, flush, model._btab, masks0,
+                                  image, vt, f"the rig at {model.grid.shape}")
+    report["emulated"] = [emul]
+    if stretch is not None:
+        big, _ = emulate_shards(
+            torch, dev, flush, stretch["btab"], stretch["masks"],
+            stretch["image"], stretch["views_threshold"],
+            f"{stretch['btab'].num_cameras} cameras at "
+            f"{stretch['btab'].grid_shape}", hold_plain=False)
+        report["emulated"].append(big)
+    # the shard-local mask stage: K2 on C/cam images per launch
+    raw = background.raw_masks_batched_fz(model._stacked_fz, frame_d,
+                                          model.mask_params)
+    C, H, W = raw.shape
+    Hp, Wp = ccl._pad_to_tiles(H, W)
+    phase = torch.zeros((C, Hp, Wp), dtype=torch.bool, device=dev)
+    phase[:, :H, :W] = raw > 0
+    plain = ccl_label.label_components_combined_plain(phase.cpu())
+    k2_err = 0.0
+    for cam in (1, 2, 4):
+        per = C // cam
+        for j in range(cam):
+            got = ccl_label.label_components_combined(
+                phase[j * per:(j + 1) * per])
+            want = [x[j * per:(j + 1) * per] for x in plain]
+            k2_err = max(k2_err, max_abs_err(
+                (g.cpu(), w_) for g, w_ in zip(got, want)))
+            expect(all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)),
+                   f"K2 on {per} image(s) (cam = {cam}, shard {j}) equals "
+                   "its plain version on the CPU")
+    report["k2_images_per_launch"] = [C // cam for cam in (1, 2, 4)]
+    return report, k1_err, k2_err
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
@@ -3545,8 +3821,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
           f"{large_edges[0]}^3, {STRETCH_CAMERAS} cameras at "
           f"{large_edges[1]}^3, the fused carve", flush=True)
     t0 = time.perf_counter()
+    stretch = {}  # phase 18's largest tables, for phase 21
     large = large_grid_phase(torch, dev, kernels, flush, model, rig_models,
-                             image_hw, large_edges)
+                             image_hw, large_edges, keep=stretch)
     large["seconds"] = time.perf_counter() - t0
     print(f"  phase 18 in {large['seconds']:.1f} s")
 
@@ -3570,6 +3847,19 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         ext_bg_frames, ext_grid)
     print(f"  phase 20 in {extrinsics['seconds']:.1f} s")
 
+    # -- [21] the sharded production step ----------------------------------
+    print(f"[21] the sharded production step: ShardedRunner on a one-rank "
+          f"group over the rig's {RIG_FRAMES} frames, {SHARD_COUNTS} shards "
+          "emulated on one card", flush=True)
+    t0 = time.perf_counter()
+    sharded, k1_err21, k2_err21 = sharded_phase(torch, dev, kernels, flush,
+                                                rig_models, stretch or None)
+    del stretch
+    sharded["seconds"] = time.perf_counter() - t0
+    k1_err, k2_err = max(k1_err, k1_err21), max(k2_err, k2_err21)
+    sharded_launches = sharded["runner"]["launches"]["strided"]
+    print(f"  phase 21 in {sharded['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -3588,11 +3878,13 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "kernels": [
             row(cb.K1, "K1 carve_blocked", "vbr_tpu/ops/carve_pallas.py:673",
                 k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by,
-                launches[0], profile, "carve_blocked_kernel", launch=k1_plan),
+                launches[0], profile, "carve_blocked_kernel", launch=k1_plan,
+                launches_sharded=sharded_launches["carve_blocked"]),
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
                 k2_bound, k2_bound_by, launches[1], profile, "CombinedRule",
-                kernel_route=k2_route),
+                kernel_route=k2_route,
+                launches_sharded=sharded_launches["ccl_combined"]),
             row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
                 k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches,
                 k3_profile, "mog_train_kernel", launch=k3_plan),
@@ -3621,6 +3913,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "large_grid": large,
         "calibration": calibration,
         "extrinsics": extrinsics,
+        "sharded": sharded,
     }
 
 

@@ -73,6 +73,8 @@ def test_phases_run_on_cpu_small_rig(capsys):
         # the carves and the training kernel what they launch
         more = ({"kernel_route"} if k["name"][:2] in ("K2", "K5")
                 else {"launch"})
+        if k["name"][:2] in ("K1", "K2"):  # also counted on phase 21's path
+            more |= {"launches_sharded"}
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "profiler_ms"} | more
@@ -267,6 +269,28 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "BackgroundPipeline from npz: masks_for_frames equal"):
         assert f"ok: {what}" in out
     assert "every recovered pose within" not in out  # production only
+    # phase 21: the sharded step on a one-rank gloo group, 2/4/8 shards
+    # emulated at the rig's 32^3 and the 8-camera 32^3 tables of phase 18
+    sharded = report["sharded"]
+    assert sharded["runner"]["backend"] == "gloo"
+    assert set(sharded["runner"]["ms"]) == {"contiguous", "strided", "cost"}
+    assert [e["cameras"] for e in sharded["emulated"]] == [4, 8]
+    for e in sharded["emulated"]:
+        assert set(e["shards"]) == {f"{S}/{m}" for S in (2, 4, 8) for m in (
+            "contiguous", "strided", "cost")}
+    assert sharded["k2_images_per_launch"] == [4, 2, 1]
+    for mode in ("contiguous", "strided", "cost"):
+        assert (f"ok: ShardedRunner(order={mode!r}) on 8 rig frames equal "
+                "to process_frame_fast(layout='blocked') bit for bit") in out
+    for what in ("sharded step overflow bits", "extract_mesh_sharded equals "
+                 "extract_mesh", "sharded_carve_step equals carve_from_tables",
+                 "sharded_pipeline_step(clean=False) equals the one-device",
+                 "sharded_pipeline_step(clean=True) equals the one-device",
+                 "the rig at (32, 32, 32): the union of 8 shards (cost) "
+                 "equals the unsharded K1",
+                 "8 cameras at (32, 32, 32): the union of 8 shards (cost)",
+                 "K2 on 1 image(s) (cam = 4, shard 3) equals its plain"):
+        assert f"ok: {what}" in out
 
 
 def test_crossing_sweeps_meet_inside_every_band():

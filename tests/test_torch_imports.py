@@ -26,6 +26,11 @@ MODULES = [
     "vbr_tpu_torch.ops.marching_cubes",
     "vbr_tpu_torch.ops.morphology",
     "vbr_tpu_torch.ops.texturing",
+    "vbr_tpu_torch.parallel",
+    "vbr_tpu_torch.parallel.carve_sharded",
+    "vbr_tpu_torch.parallel.mesh_sharded",
+    "vbr_tpu_torch.parallel.pallas_sharded",
+    "vbr_tpu_torch.parallel.pipeline_sharded",
     "vbr_tpu_torch.pipelines.auto_extrinsics",
     "vbr_tpu_torch.pipelines.background",
     "vbr_tpu_torch.pipelines.calibration",
@@ -36,9 +41,12 @@ MODULES = [
     "vbr_tpu_torch.utils.artifacts",
     "vbr_tpu_torch.utils.config",
     "vbr_tpu_torch.utils.device",
+    "vbr_tpu_torch.utils.imageproc",
+    "vbr_tpu_torch.utils.profiling",
     "vbr_tpu_torch.utils.roi",
     "vbr_tpu_torch.utils.synthetic",
     "vbr_tpu_torch.utils.video",
+    "vbr_tpu_torch.utils.warnings_",
     "vbr_tpu_torch.utils.xmlio",
     "chip_smoke",
 ]

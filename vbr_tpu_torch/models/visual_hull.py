@@ -45,6 +45,11 @@ take the reduced-byte uploads ``ingest="yuv420"`` (the YUV 4:2:0 wire
 format, half the bytes) and ``"yuv420_roi"`` (a fixed window per camera
 placed by ``utils.roi.MotionROITracker``); both are lossy, and
 ``validate_reduced_ingest`` measures what they change.
+
+``sharded_runner`` returns a ``ShardedRunner``: the same step over a
+``(data, cam, grid)`` mesh of ranks (``parallel.pallas_sharded``), one
+shard on each rank's device, with a superblock placement that can be
+re-balanced; every rank gets numpy blocked outputs of the whole batch.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ from vbr_tpu_torch.ops import carve_blocked, ccl, texturing
 from vbr_tpu_torch.ops import color as color_ops
 from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops.gmm import MOGState
+from vbr_tpu_torch.parallel import pallas_sharded
+from vbr_tpu_torch.parallel.carve_sharded import axis_size
 from vbr_tpu_torch.pipelines import background, reconstruction
 from vbr_tpu_torch.utils import artifacts
 from vbr_tpu_torch.utils.config import (
@@ -355,6 +362,35 @@ class VisualHull:
             pending = cur
         if pending is not None:
             yield self._resolve(pending, layout)
+
+    def sharded_runner(self, mesh, order: str = "strided",
+                       costing_frames=None,
+                       rebalance_every: int = 0) -> "ShardedRunner":
+        """The fused step over a ``(data, cam, grid)`` mesh of ranks
+        (``parallel.carve_sharded.make_carve_mesh``), one shard on each
+        rank's device (this model's): frames over ``data``, the mask stage
+        (kernel K2) over ``cam``, the carve (kernel K1) over the
+        superblocks split over ``("cam", "grid")`` (see
+        ``parallel.pallas_sharded``).  Returns a :class:`ShardedRunner`:
+
+            ``runner(frames (F, C, H, W, 3) u8) -> (occ_b, col_b)``
+
+        numpy blocked outputs in canonical superblock order with a leading
+        frame axis (``F`` = the mesh's ``data`` size), on every rank, each
+        frame bit-identical to ``process_frame_fast(layout="blocked")``; a
+        frame that overflows a component table is redone exactly through
+        the host cleanup.
+
+        ``order``: ``"strided"`` (default, balanced without masks) |
+        ``"cost"`` (capacity-bounded LPT; needs one (C, H, W, 3)
+        ``costing_frames`` sample whose masks estimate each superblock's
+        activity) | ``"contiguous"`` (z-major slabs).  A cost placement goes
+        stale when the subject moves: ``runner.rebalance(frame)`` re-costs
+        and re-places the tables, and ``rebalance_every=N > 0`` does it
+        every N batches from the batch's first frame."""
+        return ShardedRunner(self, mesh, order=order,
+                             costing_frames=costing_frames,
+                             rebalance_every=rebalance_every)
 
     def _resolve(self, entry, layout):
         occ, col, ovf, frames_d = entry
@@ -779,6 +815,160 @@ class VisualHull:
         self.mog_params = [MOGParams() for _ in states]
         self._stacked_fz = None
         return True
+
+
+class ShardedRunner:
+    """The sharded fused step of one rank, callable, with a placement that
+    can be re-balanced (built by :meth:`VisualHull.sharded_runner`; every
+    rank of the mesh builds one and calls it on the same batches).
+
+    Calling it on a (F, C, H, W, 3) u8 batch returns numpy ``(occ_b,
+    col_b)`` blocked, in canonical superblock order.  A superblock order
+    changes no bit of the results (every per-superblock table and the
+    canonical index map move together), so re-placing is a copy of the
+    tables:
+
+      * :meth:`rebalance` — re-cost from a frame and re-place if the
+        predicted critical path improves by ``min_gain``;
+      * ``rebalance_every=N`` — that, every N batches, from the batch's
+        first frame;
+      * :meth:`shard_costs` / :meth:`imbalance` — the predicted per-shard
+        load of the current placement under given costs.
+    """
+
+    def __init__(self, model: VisualHull, mesh, order: str = "strided",
+                 costing_frames=None, rebalance_every: int = 0):
+        if model.device.type != mesh.device_type:
+            raise ValueError(
+                f"the model is on {model.device}, the mesh on "
+                f"{mesh.device_type} devices")
+        self.model = model
+        self.mesh = mesh
+        self.mode = order
+        self.rebalance_every = int(rebalance_every)
+        self._runs = 0
+        self._nshards = pallas_sharded.shard_count(mesh)
+        model._ensure_fast_state()
+        btab = model._blocked_tables_for("sharded_runner")
+        costs = None
+        if order == "cost":
+            if costing_frames is None:
+                raise ValueError(
+                    "order='cost' needs a (C, H, W, 3) costing_frames "
+                    "sample (its masks estimate per-superblock activity)")
+            costs = self._costs_from(costing_frames)
+        self.costs = costs
+        self.order = pallas_sharded.superblock_order(
+            btab.nsuper, self._nshards, order, costs=costs)
+        self._st = pallas_sharded.shard_block_tables(mesh, btab,
+                                                     order=self.order)
+        self._step = pallas_sharded.sharded_production_step(
+            mesh, use_hsv=model.mog_params[0].use_hsv,
+            views_threshold=model.rig.views_threshold)
+        # the frozen models and thresholds never change between batches:
+        # placed once (tens of MB, not hot-path traffic)
+        self._static_in = pallas_sharded.place_static_inputs(
+            mesh, model._stacked_fz, model._fig_thresholds,
+            model._inner_thresholds,
+            pallas_sharded.mask_flags_array(model.mask_params))
+
+    # -- placement inspection / maintenance -------------------------------
+
+    def _costs_from(self, frame) -> np.ndarray:
+        """Per-superblock carve costs from one (C, H, W, 3) frame."""
+        return pallas_sharded.superblock_costs(
+            self.model._btab, self.model.masks(frame),
+            self.model.rig.views_threshold)
+
+    def _per_shard(self, order, costs) -> np.ndarray:
+        c = np.zeros(len(order), np.float64)
+        c[: self.model._btab.nsuper] = costs
+        return c[order].reshape(self._nshards, -1).sum(axis=1)
+
+    def shard_costs(self, costs=None) -> np.ndarray:
+        """(nshards,) predicted per-shard cost of the CURRENT placement
+        under ``costs`` (default: the placement's own costing frame)."""
+        costs = self.costs if costs is None else np.asarray(costs)
+        if costs is None:
+            raise ValueError(
+                "no costs available (placement is not cost-based); pass "
+                "costs or use rebalance(frame)")
+        return self._per_shard(self.order, costs)
+
+    def imbalance(self, costs=None) -> float:
+        """Critical-path / mean predicted shard cost (1.0 = perfect)."""
+        sc = self.shard_costs(costs)
+        mean = sc.mean()
+        return float(sc.max() / mean) if mean > 0 else 1.0
+
+    def rebalance(self, frame, min_gain: float = 0.05) -> bool:
+        """Re-cost from ``frame`` ((C, H, W, 3) u8) and re-place the
+        tables if the predicted critical-path cost improves by at least
+        ``min_gain`` (a fraction); True if re-placed.  Safe at any time:
+        the results are the same bits under any placement."""
+        costs = self._costs_from(frame)
+        new_order = pallas_sharded.superblock_order(
+            self.model._btab.nsuper, self._nshards, "cost", costs=costs)
+        cur_crit = self.shard_costs(costs).max()
+        new_crit = self._per_shard(new_order, costs).max()
+        self.costs = costs  # the fresher costs, also when not re-placed
+        if new_crit > (1.0 - min_gain) * cur_crit:
+            return False
+        self.mode = "cost"
+        self.order = new_order
+        self._st = pallas_sharded.shard_block_tables(
+            self.mesh, self.model._btab, order=new_order)
+        return True
+
+    # -- the step ----------------------------------------------------------
+
+    def _dispatch(self, frames):
+        """Queue the sharded step on one (F, C, H, W, 3) batch and the
+        downloads of its canonical blocked outputs."""
+        D = axis_size(self.mesh, "data")
+        if frames.shape[0] != D:
+            raise ValueError(
+                f"frame batch {frames.shape[0]} != data-axis size {D}")
+        if (self.rebalance_every and self._runs
+                and self._runs % self.rebalance_every == 0):
+            self.rebalance(frames[0])
+        self._runs += 1
+        st = self._st
+        occ_b, col_b, ovf = self._step(
+            pallas_sharded.place_frames(self.mesh, frames), *self._static_in,
+            st.tables)
+        occ_b, col_b = pallas_sharded.unshuffle_blocked(
+            occ_b, col_b, self.model._btab, st.order)
+        outs, ready = _start_download((occ_b, col_b, ovf))
+        return outs, ready, frames
+
+    def _resolve(self, entry):
+        """Wait for one dispatched batch; redo an overflowed frame exactly
+        through the host cleanup."""
+        outs, ready, frames = entry
+        _wait(ready)
+        occ_b, col_b, ovf = (t.numpy() for t in outs)
+        for f in np.flatnonzero(ovf.any(axis=1)):
+            o, c = self.model._redo(self.model._frames(frames[f]), "blocked")
+            occ_b[f], col_b[f] = carve_ops.to_host(o), carve_ops.to_host(c)
+        return occ_b, col_b
+
+    def __call__(self, frames):
+        return self._resolve(self._dispatch(frames))
+
+    def stream(self, batches_iter, depth: int = 2):
+        """The sharded step over (F, C, H, W, 3) u8 batches with up to
+        ``depth`` batches queued on the device while earlier ones are
+        read back and redone where they overflowed (the async dispatch of
+        :meth:`VisualHull.stream`).  Yields ``(occ_b, col_b)`` per batch,
+        equal to calling the runner on each."""
+        q = collections.deque()
+        for frames in batches_iter:
+            q.append(self._dispatch(frames))
+            if len(q) > depth:
+                yield self._resolve(q.popleft())
+        while q:
+            yield self._resolve(q.popleft())
 
 
 def _ingest(stacked_fz, upload, *, mask_params, use_hsv, ingest,

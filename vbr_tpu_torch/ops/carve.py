@@ -223,6 +223,19 @@ def exact_truncated_projections(cp: CameraParams, grid: GridConfig,
     return iy.astype(np.int64), ix.astype(np.int64), valid
 
 
+def view_counts(masks: torch.Tensor, valid: torch.Tensor,
+                lin_idx: torch.Tensor) -> torch.Tensor:
+    """(N,) i32: how many of the (C, H, W) ``masks`` see each voxel, from
+    its (C, N) projection tables."""
+    C = masks.shape[0]
+    masks_flat = masks.reshape(C, -1)
+    count = torch.zeros(valid.shape[1], dtype=torch.int32, device=masks.device)
+    for c in range(C):  # one camera's i64 indices at a time
+        count += (valid[c] & (masks_flat[c][lin_idx[c].long()] > 0)).to(
+            torch.int32)
+    return count
+
+
 def carve_from_tables(
     masks: torch.Tensor,  # (C, H, W) u8 foreground masks
     images: torch.Tensor,  # (C, H, W, 3) u8 BGR frames
@@ -237,13 +250,7 @@ def carve_from_tables(
     Returns (occupancy (N,) bool, colors (N, 3) u8 BGR).  Like the JAX
     table path, an invalid projection of the colour camera reads pixel
     (0, 0) (only occupied voxels' colours are ever consumed)."""
-    C = masks.shape[0]
-    masks_flat = masks.reshape(C, -1)
-    count = torch.zeros(valid.shape[1], dtype=torch.int32, device=masks.device)
-    for c in range(C):  # one camera's i64 indices at a time
-        count += (valid[c] & (masks_flat[c][lin_idx[c].long()] > 0)).to(
-            torch.int32)
-    occupancy = count >= views_threshold
+    occupancy = view_counts(masks, valid, lin_idx) >= views_threshold
     colors = images[color_camera].reshape(-1, 3)[lin_idx[color_camera].long()]
     return occupancy, colors
 

@@ -1,7 +1,8 @@
 """Typed configuration of the rig, the voxel grid and the mask stages.
 
-The port's own copy of ``vbr_tpu/utils/config.py`` (the dataclasses the
-per-frame step reads).  Field names, defaults and the canonical voxel
+The port's own copy of ``vbr_tpu/utils/config.py``: the dataclasses the
+per-frame step reads, the viewer's ``AppConfig`` and
+``reference_data_dir``.  Field names, defaults and the canonical voxel
 order are identical, so a configuration written for one package means the
 same in the other.
 """
@@ -9,6 +10,8 @@ same in the other.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Tuple
 
 import numpy as np
@@ -157,3 +160,42 @@ class RigConfig:
     chessboard_rows: int = 6
     chessboard_cols: int = 8
     chessboard_square_mm: float = 115.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AppConfig:
+    """Viewer/application settings (reference ``config.json:1-13``)."""
+
+    window_width: int = 1280
+    window_height: int = 720
+    world_width: int = 128
+    world_height: int = 64
+    world_depth: int = 128
+    sampling_level: int = 4
+    near: float = 0.1
+    far: float = 500.0
+    debug_mode: bool = False
+
+    @staticmethod
+    def load(path: str) -> "AppConfig":
+        """The settings of a ``config.json``; a key it lacks keeps its
+        default."""
+        with open(path) as f:
+            raw = json.load(f)
+        return AppConfig(**{
+            f.name: raw.get(f.name, f.default)
+            for f in dataclasses.fields(AppConfig)})
+
+
+def reference_data_dir() -> str:
+    """The reference dataset's directory (4-camera videos + calibration
+    XML): ``$VBR_DATA_DIR``, else ``data/`` at the repository's root.  The
+    JAX package also looks in one fixed directory outside the repository;
+    the port reads nothing outside its checkout unless told to."""
+    for cand in (
+        os.environ.get("VBR_DATA_DIR", ""),
+        os.path.join(os.path.dirname(__file__), "..", "..", "data"),
+    ):
+        if cand and os.path.isdir(cand):
+            return os.path.abspath(cand)
+    raise FileNotFoundError("no data directory found; set VBR_DATA_DIR")
