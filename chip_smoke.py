@@ -199,6 +199,22 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      labels at ``cam`` = 4, 2 and 1, equal to its plain version on the CPU.
      NCCL refuses two ranks on one card, so no collective of more than
      one rank runs here.
+ 22. the viewer's headless renderer (``viewer/headless.py``) on the
+     card: phase 14's 8 rig frames through the viewer's ``G`` key
+     (``app.recarve`` on a ``ViewerState``: ``BackgroundPipeline`` on the
+     rig's models, ``Reconstructor.carve_frame`` and ``compact_voxels`` at
+     ``AppConfig``'s 128 x (64·2) x 128 world), each rendered at 960x720
+     with the 64 x 64 floor and the cameras from an eye on the CLI's
+     ``--animate`` orbit (``orbit_pose``: radius 38, height 24, target
+     (4, 6, 0), 8 eyes from -135 degrees), every image bit-equal to the same
+     call on the CPU; frame 0 written by ``save_png`` under ``build/`` and
+     read back equal by the script's own decoder; 2,200,000 seeded points
+     of the 128³ lattice (the GL engine's instance capacity; repeats and
+     tied depths included) rendered bit-equal to the CPU; render ms per
+     frame for both (device-event medians), the CPU render's ms, the whole
+     frame's ms (``recarve``, render, download) and its parts, a profile of
+     each render (device-busy ms and device ops per render); and, for
+     information, whether PyOpenGL, glfw and PIL import on the host.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -1017,10 +1033,11 @@ def k4_work(torch, cb, btab, active, full, masks, occ):
               f"of {masks.numel()}"))
 
 
-def read_png_gray(path):
-    """An 8-bit grayscale, non-interlaced PNG as an (H, W) u8 array, with
-    the standard library's zlib (no image library on the card's host):
-    the five row filters of the PNG standard, one byte per pixel."""
+def read_png(path):
+    """An 8-bit grayscale or RGB, non-interlaced PNG as an (H, W) or
+    (H, W, 3) u8 array, with the standard library's zlib (no image library
+    on the card's host): the five row filters of the PNG standard, each
+    byte predicted from the byte one pixel to its left."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -1037,24 +1054,28 @@ def read_png_gray(path):
             break
         pos += 12 + n
     W, H, depth, colour, _, _, interlace = head
-    if (depth, colour, interlace) != (8, 0, 0):
-        raise ValueError(f"{path}: not 8-bit grayscale without interlace")
+    if depth != 8 or colour not in (0, 2) or interlace != 0:
+        raise ValueError(f"{path}: not 8-bit grayscale or RGB without "
+                         "interlace")
+    bpp = 1 if colour == 0 else 3  # bytes per pixel
+    n = W * bpp
     rows = np.frombuffer(zlib.decompress(b"".join(idat)),
-                         np.uint8).reshape(H, W + 1)
-    out = np.zeros((H, W), np.uint8)
-    up = np.zeros(W, np.int64)
+                         np.uint8).reshape(H, n + 1)
+    out = np.zeros((H, n), np.uint8)
+    up = np.zeros(n, np.int64)
     for y in range(H):
         kind, line = rows[y, 0], rows[y, 1:].astype(np.int64)
         if kind == 0:  # None
             cur = line
         elif kind == 1:  # Sub: x = r + left, a running sum mod 256
-            cur = np.cumsum(line) % 256
+            cur = (np.cumsum(line.reshape(W, bpp), axis=0) % 256).reshape(n)
         elif kind == 2:  # Up
             cur = (line + up) % 256
         elif kind in (3, 4):  # Average, Paeth: each byte needs its left
-            cur = np.zeros(W, np.int64)
-            left = up_left = 0
-            for x in range(W):
+            cur = np.zeros(n, np.int64)
+            for x in range(n):
+                left = int(cur[x - bpp]) if x >= bpp else 0
+                up_left = int(up[x - bpp]) if x >= bpp else 0
                 above = int(up[x])
                 if kind == 3:
                     pred = (left + above) // 2
@@ -1063,13 +1084,20 @@ def read_png_gray(path):
                     pa, pb, pc = abs(p - left), abs(p - above), abs(p - up_left)
                     pred = (left if pa <= pb and pa <= pc
                             else above if pb <= pc else up_left)
-                left = cur[x] = (int(line[x]) + pred) % 256
-                up_left = above
+                cur[x] = (int(line[x]) + pred) % 256
         else:
             raise ValueError(f"{path}: unknown row filter {kind}")
         out[y] = cur
         up = cur
-    return out
+    return out if bpp == 1 else out.reshape(H, W, 3)
+
+
+def read_png_gray(path):
+    """``read_png`` of an 8-bit grayscale PNG: (H, W) u8."""
+    img = read_png(path)
+    if img.ndim != 2:
+        raise ValueError(f"{path}: not 8-bit grayscale")
+    return img
 
 
 RIG_DIR = "artifacts/auto_extrinsics"  # the 4-camera rig, cam{i}_config.xml
@@ -3327,13 +3355,220 @@ def sharded_phase(torch, dev, kernels, flush, rig, stretch=None):
     return report, k1_err, k2_err
 
 
+VIEWER_HW = (720, 960)  # ``headless.render_points``' default image
+VIEWER_POINTS = 2_200_000  # ``gl_engine.InstancedCubes``' max_instances
+VIEWER_GRID = 128  # ``AppConfig``'s world: 128 x (64 * 2) x 128
+# ``vbr_tpu/apps/cli.py`` ``orbit_pose``: radius, height and target, and
+# the first angle of the ``--animate`` orbit
+ORBIT_RADIUS, ORBIT_HEIGHT, ORBIT_TARGET = 38.0, 24.0, (4.0, 6.0, 0.0)
+ORBIT_START = -135.0
+VIEWER_REPS = 5  # timed runs of each render
+
+
+def orbit_eye(theta_deg):
+    """The eye that ``orbit_pose(theta_deg)`` places."""
+    th = np.radians(theta_deg)
+    return (ORBIT_TARGET[0] + ORBIT_RADIUS * np.cos(th), ORBIT_HEIGHT,
+            ORBIT_TARGET[2] + ORBIT_RADIUS * np.sin(th))
+
+
+def gl_packages():
+    """Whether each package of the GL viewer imports on this host, each in
+    a process of its own: {module: "yes" or the error's last line}."""
+    out = {}
+    for name in ("OpenGL.GL", "glfw", "PIL.Image"):
+        res = subprocess.run([sys.executable, "-c", f"import {name}"],
+                             capture_output=True, text=True, timeout=120)
+        out[name] = ("yes" if res.returncode == 0
+                     else (res.stderr.strip().splitlines() or ["no"])[-1])
+    return out
+
+
+def viewer_render_phase(torch, dev, rig, image_hw, grid_edge=VIEWER_GRID,
+                        hw=VIEWER_HW, n_points=VIEWER_POINTS,
+                        build_root="build"):
+    """Phase 22: the viewer's headless renderer on ``dev`` (see ``run``),
+    each image held bit-equal to the same call on the CPU.  Returns its
+    report."""
+    from itertools import cycle
+
+    from vbr_tpu_torch.ops import carve as carve_ops
+    from vbr_tpu_torch.pipelines import reconstruction
+    from vbr_tpu_torch.pipelines.background import BackgroundPipeline
+    from vbr_tpu_torch.utils.config import CameraParams, GridConfig, RigConfig
+    from vbr_tpu_torch.utils.video import ArraySource
+    from vbr_tpu_torch.viewer import app, headless
+
+    t_phase = time.perf_counter()
+    H, W = image_hw
+    grid = GridConfig(nx=grid_edge, ny=grid_edge, nz=grid_edge)
+    cams = [CameraParams.from_arrays(*c) for c in rig_cameras(image_hw)]
+    # the viewer's state as ``run_viewer`` makes it, on the rig's models
+    # and frames: frame 0 once ahead of the 8 (the timing's warm-up)
+    t0 = time.perf_counter()
+    state = app.ViewerState(
+        source=ArraySource(np.concatenate([rig.frames[:1], rig.frames])),
+        background=BackgroundPipeline(rig.models,
+                                      mask_params=rig.model.mask_params,
+                                      device=dev),
+        recon=reconstruction.Reconstructor(
+            cams, grid, RigConfig(image_height=H, image_width=W),
+            device=dev))
+    print(f"  the viewer's state on {dev.type} (the rig's models loaded) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # the scene furniture as the CLI's render passes it
+    floor_pos, floor_col = reconstruction.generate_grid(64, 64)
+    cam_pos, cam_col = reconstruction.get_cam_positions(cams)
+    furniture = (np.asarray(floor_pos), np.asarray(floor_col),
+                 np.asarray(cam_pos, float), cam_col)
+    eyes = [orbit_eye(ORBIT_START + 360.0 * i / RIG_FRAMES)
+            for i in range(RIG_FRAMES)]
+
+    def draw(pos, rgb, eye, device):
+        img = headless.render_points(pos, rgb, eye=eye, target=ORBIT_TARGET,
+                                     image_hw=hw, device=device)
+        return headless.render_floor_and_cameras(img, *furniture, eye=eye,
+                                                 target=ORBIT_TARGET)
+
+    def cpu_draw(pos, rgb, eye, times):
+        """``draw`` on the CPU, its host-clock ms appended to ``times``."""
+        t0 = time.perf_counter()
+        img = draw(pos, rgb, eye, "cpu")
+        times.append((time.perf_counter() - t0) * 1e3)
+        return img
+
+    # -- the viewer's G key along the orbit: ``app.recarve`` (masks, carve,
+    # compaction) and the render, to the image on the host, timed frame by
+    # frame (the warm-up's frame 0 first); then each image against the CPU
+    shown = []
+
+    def whole_frame(i):
+        pos, rgb = app.recarve(state)
+        shown.append((pos, rgb, draw(pos, rgb, eyes[i], dev).cpu()))
+
+    order = iter([0, *range(RIG_FRAMES)])
+    frame_ms = timed_ms(whole_frame, torch, dev, reps=RIG_FRAMES,
+                        setup=lambda: next(order))
+    shown = shown[1:]
+    n_occ, covered, same, cpu_hull = [], [], True, []
+    empty = np.zeros((0, 3), np.float32)
+    for i, (pos, rgb, img) in enumerate(shown):
+        same &= (img.shape == (hw[0], hw[1], 3) and img.dtype == torch.uint8
+                 and torch.equal(img, cpu_draw(pos, rgb, eyes[i], cpu_hull)))
+        covered.append(int((img != draw(empty, empty, eyes[i], "cpu"))
+                           .any(-1).sum()))
+        n_occ.append(len(pos))
+    expect(same and min(n_occ) > 0 and min(covered) > 0
+           and app.recarve(state) is None,
+           f"the viewer's recarve on the rig at {grid_edge}^3 over "
+           f"{RIG_FRAMES} frames, then None, rendered at {hw[1]}x{hw[0]} "
+           f"with the floor and the cameras along the orbit (radius "
+           f"{ORBIT_RADIUS}, height {ORBIT_HEIGHT}, from {ORBIT_START} "
+           f"degrees): every image bit-equal on {dev.type} and on the CPU; "
+           f"voxels {n_occ}, pixels the hull covers {covered}")
+    img0 = shown[0][2]
+    png = os.path.join(build_root, "viewer_frame0.png")
+    headless.save_png(png, img0)
+    expect(np.array_equal(read_png(png), img0.numpy()),
+           f"save_png of frame 0 ({os.path.getsize(png)} B) read back by the "
+           "standard-library decoder equals the image")
+
+    # -- the viewer's capacity: seeded points of the lattice, repeats and
+    # tied depths included
+    rng = np.random.default_rng(SEED)
+    idx = rng.integers(0, grid_edge ** 3, n_points)
+    pos_c, rgb_c = carve_ops.viewer_arrays(
+        grid.voxel_points()[idx],
+        rng.integers(0, 256, (n_points, 3), dtype=np.uint8),
+        state.recon.rig.scaling_factor)
+    R, t = headless.look_at(eyes[0], ORBIT_TARGET)
+    z = headless._camera_frame(torch.from_numpy(pos_c).double(), R, t)[2]
+    tied = int((torch.unique(z, return_counts=True)[1] > 1).sum())
+    pos_d = torch.from_numpy(pos_c).to(dev)
+    rgb_d = torch.from_numpy(rgb_c).to(dev)
+    img = draw(pos_d, rgb_d, eyes[0], dev).cpu()
+    cpu_cap = []
+    want = [cpu_draw(pos_c, rgb_c, eyes[0], cpu_cap)
+            for _ in range(VIEWER_REPS)][0]
+    expect(torch.equal(img, want),
+           f"{n_points} seeded points of the {grid_edge}^3 lattice "
+           f"({n_points - len(np.unique(idx))} repeats, {tied} depth values "
+           f"shared by more than one point) rendered at {hw[1]}x{hw[0]}: "
+           f"image bit-equal on {dev.type} and on the CPU")
+
+    # -- times: device-event intervals on the card (where a function waits
+    # for the host, as the mask stage and the download do, the wait is
+    # inside), the host clock on the CPU (the comparisons' runs above)
+    uploaded = [(torch.from_numpy(p).to(dev), torch.from_numpy(c).to(dev),
+                 eyes[i]) for i, (p, c, _) in enumerate(shown)]
+    hull = cycle(uploaded)
+    reps = max(VIEWER_REPS, RIG_FRAMES)
+    fr0 = rig.frames[0]
+    masks0 = state.background.masks_for_frames(fr0)
+    occ, col = state.recon.carve_frame(masks0, fr0)
+    ms = {
+        "render_rig_hull": timed_ms(lambda a: draw(*a, dev), torch, dev,
+                                    reps=reps, setup=lambda: next(hull)),
+        "render_capacity": timed_ms(
+            lambda: draw(pos_d, rgb_d, eyes[0], dev), torch, dev,
+            reps=VIEWER_REPS),
+        "frame": frame_ms,
+        "masks": timed_ms(lambda: state.background.masks_for_frames(fr0),
+                          torch, dev, reps=VIEWER_REPS),
+        "carve": timed_ms(lambda: state.recon.carve_frame(masks0, fr0),
+                          torch, dev, reps=VIEWER_REPS),
+        "compact": timed_ms(lambda: carve_ops.compact_voxels(
+            occ, col, grid, state.recon.rig.scaling_factor), torch, dev,
+            reps=VIEWER_REPS),
+        "cpu_render_rig_hull": float(np.median(cpu_hull)),
+        "cpu_render_capacity": float(np.median(cpu_cap)),
+    }
+    clock = "device-event" if dev.type == "cuda" else "host-clock"
+    print(f"  render ms per frame on {dev.type} (median of {reps} {clock} "
+          f"intervals): the rig hull {ms['render_rig_hull']:.3f} "
+          f"({np.mean(n_occ):.0f} voxels on average), {n_points} points "
+          f"{ms['render_capacity']:.3f} (median of {VIEWER_REPS})")
+    print(f"  the CPU torch render, the host's pace (median of "
+          f"{RIG_FRAMES} and {VIEWER_REPS} host-clock intervals): the rig hull "
+          f"{ms['cpu_render_rig_hull']:.3f} ms, {n_points} points "
+          f"{ms['cpu_render_capacity']:.3f} ms")
+    print(f"  the whole frame (app.recarve: masks, carve, compaction; the "
+          f"render and the image's download; median of {RIG_FRAMES}) "
+          f"{ms['frame']:.3f} ms; apart (median of {VIEWER_REPS}): masks "
+          f"{ms['masks']:.3f}, carve {ms['carve']:.3f}, compaction "
+          f"{ms['compact']:.3f}, render {ms['render_rig_hull']:.3f}: the "
+          f"render's share {ms['render_rig_hull'] / ms['frame']:.3f}")
+    profiles = {}
+    if dev.type == "cuda":
+        for key, args, n in (("render_rig_hull", uploaded[0], 4),
+                             ("render_capacity", (pos_d, rgb_d, eyes[0]),
+                              2)):
+            def render(a=args):
+                draw(*a, dev)
+                torch.cuda.synchronize()
+            profiles[key] = profile_step(
+                torch, render, ms[key],
+                f"  profile of the {key} render ({n} renders):", frames=n)
+    packages = gl_packages()
+    print(f"  the GL viewer's packages on this host (information, not a "
+          f"check): {packages}")
+    return {"image_hw": list(hw), "grid": [grid_edge] * 3,
+            "frames": RIG_FRAMES, "voxels": n_occ, "covered_pixels": covered,
+            "points": n_points, "tied_depths": tied, "ms": ms,
+            "profiles": profiles, "png_bytes": os.path.getsize(png),
+            "gl_packages": packages,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
         seam_sizes=((128, 64, 128), (100, 50, 100)), roi_hw=ROI_HW,
         large_edges=LARGE_EDGES, calib_hw=CALIB_HW, calib_views=None,
         calib_iters=CALIB_ITERS, ext_hw=RIG_HW, ext_cams=4,
-        ext_iters=EXT_ITERS, ext_bg_frames=EXT_BG_FRAMES, ext_grid=EXT_GRID):
+        ext_iters=EXT_ITERS, ext_bg_frames=EXT_BG_FRAMES, ext_grid=EXT_GRID,
+        viewer_grid=VIEWER_GRID, viewer_hw=VIEWER_HW,
+        viewer_points=VIEWER_POINTS):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
@@ -3347,7 +3582,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     ``calib_iters`` Adam steps, and the extrinsics on ``ext_cams`` of the
     rig's cameras at ``ext_hw`` with ``ext_iters`` photometric steps,
     ``ext_bg_frames`` background frames and a carve A/B grid of
-    ``ext_grid``³; returns the per-kernel report."""
+    ``ext_grid``³, and the viewer's headless render of the rig at
+    ``viewer_grid``³ and of ``viewer_points`` lattice points at
+    ``viewer_hw``; returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -3860,6 +4097,14 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     sharded_launches = sharded["runner"]["launches"]["strided"]
     print(f"  phase 21 in {sharded['seconds']:.1f} s")
 
+    # -- [22] the viewer's headless render ----------------------------------
+    print(f"[22] the viewer's headless render: the rig at {viewer_grid}^3 "
+          f"along an orbit of {RIG_FRAMES} eyes and {viewer_points} lattice "
+          f"points, at {viewer_hw[1]}x{viewer_hw[0]}", flush=True)
+    viewer_render = viewer_render_phase(torch, dev, rig_models, image_hw,
+                                        viewer_grid, viewer_hw, viewer_points)
+    print(f"  phase 22 in {viewer_render['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -3914,6 +4159,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "calibration": calibration,
         "extrinsics": extrinsics,
         "sharded": sharded,
+        "viewer_render": viewer_render,
     }
 
 

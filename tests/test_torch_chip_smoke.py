@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -63,7 +64,9 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             roi_hw=(112, 128), large_edges=(64, 32),
                             calib_hw=(244, 322), calib_views=3,
                             calib_iters=30, ext_hw=(243, 322), ext_cams=2,
-                            ext_iters=20, ext_bg_frames=8, ext_grid=32)
+                            ext_iters=20, ext_bg_frames=8, ext_grid=32,
+                            viewer_grid=32, viewer_hw=(72, 96),
+                            viewer_points=20_000)
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -291,6 +294,25 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "8 cameras at (32, 32, 32): the union of 8 shards (cost)",
                  "K2 on 1 image(s) (cam = 4, shard 3) equals its plain"):
         assert f"ok: {what}" in out
+    # phase 22: the viewer's headless render, here at 32^3, 96x72 and
+    # 20,000 lattice points
+    assert "[22] the viewer's headless render" in out
+    vr = report["viewer_render"]
+    assert vr["image_hw"] == [72, 96] and vr["grid"] == [32, 32, 32]
+    assert vr["frames"] == 8 and min(vr["voxels"]) > 0
+    assert min(vr["covered_pixels"]) > 0
+    assert vr["points"] == 20_000 and vr["tied_depths"] > 0
+    assert set(vr["ms"]) == {"render_rig_hull", "render_capacity", "frame",
+                             "masks", "carve", "compact",
+                             "cpu_render_rig_hull", "cpu_render_capacity"}
+    assert set(vr["gl_packages"]) == {"OpenGL.GL", "glfw", "PIL.Image"}
+    for what in ("the viewer's recarve on the rig at 32^3 over 8 frames, "
+                 "then None, rendered at 96x72 with the floor and the "
+                 "cameras along the orbit",
+                 "save_png of frame 0",
+                 "20000 seeded points of the 32^3 lattice"):
+        assert f"ok: {what}" in out
+    assert "the render's share" in out
 
 
 def test_crossing_sweeps_meet_inside_every_band():
@@ -394,6 +416,78 @@ def test_png_reader_matches_pil_on_the_rig_masks(cam):
     want = np.asarray(Image.open(path))
     assert got.dtype == np.uint8 and got.shape == chip_smoke.RIG_HW
     np.testing.assert_array_equal(got, want)
+
+
+def _png_rows(img, row_filter, bpp):
+    """The PNG standard's filter ``row_filter`` applied to every row of an
+    (H, W·bpp) int64 image, each byte predicted from the one ``bpp`` to
+    its left: the scanlines with their filter bytes."""
+    n = img.shape[1]
+    rows, up = [], np.zeros(n, np.int64)
+    for line in img:
+        left = np.concatenate([np.zeros(bpp, np.int64), line[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        if row_filter == 4:
+            p = left + up - up_left
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, up_left))
+        else:
+            pred = [0 * line, left, up, (left + up) // 2][row_filter]
+        rows.append(bytes([row_filter]) + bytes(((line - pred) % 256)
+                                                .astype(np.uint8)))
+        up = line
+    return b"".join(rows)
+
+
+def _png_file(path, W, H, colour, rows):
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour,
+                                                  0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows))
+                     + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("row_filter", [0, 1, 2, 3, 4])
+def test_png_reader_undoes_each_row_filter_rgb(tmp_path, row_filter):
+    """An RGB PNG whose rows all carry one filter type (a byte's left is
+    the same channel of the pixel before) reads back as PIL reads it."""
+    from PIL import Image
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(10 + row_filter)
+    img = rng.integers(0, 256, (7, 11, 3)).astype(np.int64)
+    img[3:] = (img[3:] // 64) * 64
+    path = tmp_path / "rgb.png"
+    _png_file(path, 11, 7, 2, _png_rows(img.reshape(7, 33), row_filter, 3))
+    got = chip_smoke.read_png(str(path))
+    assert got.dtype == np.uint8 and got.shape == (7, 11, 3)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    np.testing.assert_array_equal(got, img)
+    with pytest.raises(ValueError, match="grayscale"):
+        chip_smoke.read_png_gray(str(path))
+
+
+def test_png_reader_reads_the_viewers_png(tmp_path):
+    """``headless.save_png``'s file reads back equal through the script's
+    reader and through PIL."""
+    from PIL import Image
+
+    from vbr_tpu_torch.viewer import headless
+
+    chip_smoke = _chip_smoke()
+    img = np.random.default_rng(1).integers(0, 256, (30, 41, 3), np.uint8)
+    path = str(tmp_path / "v.png")
+    headless.save_png(path, torch.from_numpy(img))
+    np.testing.assert_array_equal(chip_smoke.read_png(path), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
 
 
 @pytest.mark.parametrize("row_filter", [0, 1, 2, 3, 4])

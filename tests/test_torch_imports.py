@@ -48,6 +48,22 @@ MODULES = [
     "vbr_tpu_torch.utils.video",
     "vbr_tpu_torch.utils.warnings_",
     "vbr_tpu_torch.utils.xmlio",
+    "vbr_tpu_torch.viewer",
+    "vbr_tpu_torch.viewer.app",
+    "vbr_tpu_torch.viewer.gl_engine",
+    "vbr_tpu_torch.viewer.headless",
+    "vbr_tpu_torch.viewer.models3d",
+    "vbr_tpu_torch.viewer.offscreen",
+    "vbr_tpu_torch.viewer.scene",
+    "chip_smoke",
+]
+# the viewer modules the card's machine imports, which has no PyOpenGL,
+# glfw or PIL
+GL_FREE = [
+    "vbr_tpu_torch.viewer.models3d",
+    "vbr_tpu_torch.viewer.scene",
+    "vbr_tpu_torch.viewer.headless",
+    "vbr_tpu_torch.viewer.gl_engine",
     "chip_smoke",
 ]
 
@@ -69,6 +85,33 @@ def test_port_imports_without(blocked):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
+
+@pytest.mark.parametrize("blocked", ["OpenGL", "glfw", "PIL"])
+def test_viewer_imports_without(blocked):
+    """``models3d``, ``scene``, ``headless`` and ``gl_engine`` import, and
+    the headless renderer and ``save_png`` run, with ``blocked`` absent
+    (and JAX, ``vbr_tpu`` and cv2 too)."""
+    code = (
+        "import sys\n"
+        f"for name in ('jax', 'vbr_tpu', 'cv2', {blocked!r}):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, os, tempfile\n"
+        f"for m in {GL_FREE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from vbr_tpu_torch.viewer import headless\n"
+        "img = headless.render_points(torch.zeros(1, 3) + 5, torch.ones(1, 3),"
+        " image_hw=(8, 8))\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'x.png')\n"
+        "headless.save_png(path, img)\n"
+        "assert os.path.getsize(path) > 50\n"
+        f"assert sys.modules[{blocked!r}] is None\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_lib_path_follows_source_headers_and_flags(tmp_path):
