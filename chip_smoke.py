@@ -215,6 +215,27 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      frame's ms (``recarve``, render, download) and its parts, a profile of
      each render (device-busy ms and device ops per render); and, for
      information, whether PyOpenGL, glfw and PIL import on the host.
+ 23. the CLI (``apps/cli.py``) on video files: a rig directory written by
+     the port's own MJPEG writer under ``build/`` (the cameras of
+     ``artifacts/auto_extrinsics``, 134 background frames per camera from
+     the seeded background, 428 video frames of the rig's silhouettes
+     walking 40 px across, 486x644 at 50 fps); every file's container
+     count equal to the frames written; ``read_video``, ``frame_iterator``,
+     ``get_frame`` and ``PrefetchingSource`` giving the same frames; the
+     host's decode ms per 4-camera frame, one thread and four; then
+     through ``cli.main`` at ``--grid 128``: ``pipeline`` over all frames
+     (its training from video timed, K3 launches counted, and its stream
+     loop timed again over 128 frames, beside the same step on frames
+     decoded beforehand and ``process_frames_offline`` at 16 and 64
+     frames), ``pipeline --offline 8``, ``masks`` (which trains and writes
+     the background cache, equal to ``pipeline``'s model), ``carve``,
+     ``carve --batched --frames 8``, ``mesh`` and ``render``, each
+     command's kernel launches counted; the same commands with ``--cpu``
+     on the card's cache (``pipeline`` over the first 4 frames),
+     every output file byte-equal to the card's; a band of camera 1's
+     model retrained on the CPU, bit-equal; and ``calibrate --mode
+     extrinsics`` on phase 20's scene written as MJPEG video, every pose
+     within 0.01 rad and 25 mm.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -3081,8 +3102,8 @@ def extrinsics_phase(torch, dev, bg_seqs, tr_states, tr_params, frames,
             num_cameras=len(bg_seqs), mask_params=mask_params,
             background_frames=bg_seqs, device=dev), tr_states, frames),
         "npz": (background.BackgroundPipeline(
-            models_dir, num_cameras=len(seeded_states),
-            mask_params=mask_params, device=dev),
+            None, num_cameras=len(seeded_states), mask_params=mask_params,
+            cache_dir=models_dir, device=dev),
             [gmm.MOGState(*(t.to(dev) for t in s)) for s in seeded_states],
             rig_frame),
     }
@@ -3408,7 +3429,7 @@ def viewer_render_phase(torch, dev, rig, image_hw, grid_edge=VIEWER_GRID,
     t0 = time.perf_counter()
     state = app.ViewerState(
         source=ArraySource(np.concatenate([rig.frames[:1], rig.frames])),
-        background=BackgroundPipeline(rig.models,
+        background=BackgroundPipeline(None, cache_dir=rig.models,
                                       mask_params=rig.model.mask_params,
                                       device=dev),
         recon=reconstruction.Reconstructor(
@@ -3560,6 +3581,565 @@ def viewer_render_phase(torch, dev, rig, image_hw, grid_edge=VIEWER_GRID,
             "seconds": time.perf_counter() - t_phase}
 
 
+CLI_BG_FRAMES = 134  # background.avi frames per camera (the rig's, SURVEY.md)
+CLI_VIDEO_FRAMES = 428  # video.avi frames per camera
+CLI_FPS = 50.0
+CLI_GRID = 128
+CLI_OFFLINE_NF = 8  # ``pipeline --offline N``
+CLI_BATCHED = 8  # ``carve --batched --frames N``
+CLI_CPU_FRAMES = 4  # frames of ``pipeline`` on the CPU side
+CLI_DECODE_FRAMES = 32  # frames decoded in sequence, timed, then stepped
+CLI_WALK = (40, 3)  # px: the subject's walk across the frame and its bob
+
+
+def card_line():
+    """``nvidia-smi``'s name and power limit of the card (its first line),
+    or None where it fails."""
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = res.stdout.strip().splitlines()
+    return lines[0] if res.returncode == 0 and lines else None
+
+
+def write_cli_rig(root, bg_frames, video_frames, seed=SEED + 23):
+    """A rig directory as the CLI reads it, written by the port's own
+    writers: ``cam{i}/config.xml`` (the cameras of ``RIG_DIR``),
+    ``checkerboard.xml``, and per camera ``background.avi`` (a seeded
+    textured background, ``rig_background``, plus ±4 levels of noise per
+    pixel, 3 % of the pixels 50 levels brighter: one of 8 seeded noise
+    fields per frame, rolled by a seeded offset) and ``video.avi`` (the
+    rig's silhouettes in the subject texture over it, walking
+    ``CLI_WALK[0]`` px across and bobbing ``CLI_WALK[1]`` px, 200 speckle
+    pixels per camera), MJPEG at ``CLI_FPS``, one thread per camera
+    painting and encoding its frames.  Returns the directory."""
+    from vbr_tpu_torch.native import VideoSink
+    from vbr_tpu_torch.utils import xmlio
+
+    H, W = RIG_HW
+    data = f"{root}/cli_rig_{H}x{W}_{bg_frames}_{video_frames}"
+    shutil.rmtree(data, ignore_errors=True)
+    for i, cam in enumerate(rig_cameras(RIG_HW), start=1):
+        xmlio.save_camera_config(f"{data}/cam{i}", *cam)
+    xmlio.save_storage(f"{data}/checkerboard.xml",
+                       {"CheckerBoardWidth": 8, "CheckerBoardHeight": 6,
+                        "CheckerBoardSquareSize": 115})
+    rng = np.random.default_rng(seed)
+    sils = rig_silhouettes(RIG_HW)
+    C = len(sils)
+    bg = np.stack([rig_background(rng, RIG_HW) for _ in sils])
+    tex = subject_texture(H, W)
+    # noise fields drawn once; each frame adds one of them at a seeded
+    # offset, so no two frames of a camera carry the same noise
+    noise = rng.integers(-4, 5, (8,) + bg.shape, dtype=np.int8)
+    noise[rng.random(noise.shape[:4]) < 0.03] = 50
+    # every draw is made here, in one order; then each camera's thread
+    # paints and encodes its own frames
+    picks = [(rng.integers(0, len(noise)), rng.integers(0, W))
+             for _ in range(bg_frames)]
+    speckle = [(rng.integers(0, H, (C, 200)), rng.integers(0, W, (C, 200)))
+               for _ in range(video_frames)]
+
+    def write_camera(c):
+        cam = f"{data}/cam{c + 1}"
+        with VideoSink(f"{cam}/background.avi", CLI_FPS, W, H) as sink:
+            for k, shift in picks:
+                fr = bg[c] + np.roll(noise[k, c], shift, axis=1)
+                sink.write(np.clip(fr, 0, 255).astype(np.uint8))
+        with VideoSink(f"{cam}/video.avi", CLI_FPS, W, H) as sink:
+            for t, (ys, xs) in enumerate(speckle):
+                ph = t / max(video_frames - 1, 1)
+                dx = int(round(CLI_WALK[0] * (ph - 0.5)))
+                dy = int(round(CLI_WALK[1] * np.sin(2 * np.pi * 4 * ph)))
+                sil = np.roll(sils[c], (dy, dx), axis=(0, 1))
+                sil[ys[c], xs[c]] = True  # speckle
+                fr = bg[c].copy()
+                fr[sil] = tex[sil]
+                sink.write(fr)
+
+    with ThreadPoolExecutor(C) as pool:  # numpy and PIL free the GIL
+        list(pool.map(write_camera, range(C)))
+    return data
+
+
+def run_cli(cli, argv):
+    """``cli.main(argv)``; (its printed lines, host seconds).  The lines
+    are printed again, indented."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"    | {ln}")
+    return lines, s
+
+
+class watch_training:
+    """Times each ``VisualHull.train_background`` call (and keeps its model)
+    while the CLI runs: ``calls`` of (seconds, model)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.calls = torch, dev, []
+
+    def __enter__(self):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        self.orig = VisualHull.train_background
+        orig = self.orig
+
+        def train_background(model, source):
+            t0 = time.perf_counter()
+            orig(model, source)
+            sync(self.torch, self.dev)
+            self.calls.append((time.perf_counter() - t0, model))
+
+        VisualHull.train_background = train_background
+        return self
+
+    def __exit__(self, *exc):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        VisualHull.train_background = self.orig
+
+
+class models_from:
+    """``VisualHull.from_data_dir`` loading the background models of
+    ``cache_dir`` in place of training them (the CPU side's ``pipeline``:
+    the plain training of four cameras takes minutes on the host)."""
+
+    def __init__(self, cache_dir):
+        self.cache_dir = cache_dir
+
+    def __enter__(self):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        self.orig = VisualHull.__dict__["from_data_dir"]
+        cache, orig = self.cache_dir, self.orig.__func__
+
+        def load(cls, data_dir, grid=None, train_background=True, **kw):
+            m = orig(cls, data_dir, grid, train_background=False, **kw)
+            if not m.load_background_models(cache):
+                raise FileNotFoundError(f"no background models in {cache}")
+            return m
+
+        VisualHull.from_data_dir = classmethod(load)
+        return self
+
+    def __exit__(self, *exc):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        VisualHull.from_data_dir = self.orig
+
+
+class record_steps:
+    """Keeps what ``VisualHull``'s stream and offline steps return while
+    the CLI runs: ``stream`` (occupancy, colours) per frame, on the model's
+    device (the colours of the first ``keep_colors`` frames only, else
+    None); ``offline`` (occupancy (F, N), the first ``keep_colors`` frames'
+    colours) per call; ``entered`` the host clock at each stream step's
+    call, so the gaps are the stream loop's period."""
+
+    def __init__(self, keep_colors):
+        self.keep = keep_colors
+        self.stream, self.offline, self.entered = [], [], []
+
+    def __enter__(self):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        self.orig = (VisualHull.process_frame_fast,
+                     VisualHull.process_frames_offline)
+        fast, offline = self.orig
+
+        def process_frame_fast(model, frames, *a, **kw):
+            self.entered.append(time.perf_counter())
+            occ, col = fast(model, frames, *a, **kw)
+            keep = col.clone() if len(self.stream) < self.keep else None
+            self.stream.append((occ.clone(), keep))
+            return occ, col
+
+        def process_frames_offline(model, frames, *a, **kw):
+            occ, colors = offline(model, frames, *a, **kw)
+            self.offline.append((occ.copy(), (colors or [])[:self.keep]))
+            return occ, colors
+
+        VisualHull.process_frame_fast = process_frame_fast
+        VisualHull.process_frames_offline = process_frames_offline
+        return self
+
+    def __exit__(self, *exc):
+        from vbr_tpu_torch.models.visual_hull import VisualHull
+
+        (VisualHull.process_frame_fast,
+         VisualHull.process_frames_offline) = self.orig
+
+
+def same_colors(a, b):
+    """Two lists of ``process_frames_offline``'s per-frame (idx, col)."""
+    return len(a) == len(b) and all(
+        np.array_equal(ia, ib) and np.array_equal(ca, cb)
+        for (ia, ca), (ib, cb) in zip(a, b))
+
+
+def same_files(a_dir, b_dir, names):
+    """The names whose files differ (or are missing) between two
+    directories."""
+    bad = []
+    for n in names:
+        pa, pb = os.path.join(a_dir, n), os.path.join(b_dir, n)
+        if not (os.path.exists(pa) and os.path.exists(pb)):
+            bad.append(n)
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                bad.append(n)
+    return bad
+
+
+def cli_phase(torch, dev, kernels, bg_frames=CLI_BG_FRAMES,
+              video_frames=CLI_VIDEO_FRAMES, grid_edge=CLI_GRID,
+              offline_nf=CLI_OFFLINE_NF, batched=CLI_BATCHED,
+              cpu_frames=CLI_CPU_FRAMES, decode_frames=CLI_DECODE_FRAMES,
+              ext_hw=RIG_HW, ext_cams=4, ext_bg_frames=EXT_BG_FRAMES,
+              build_root="build"):
+    """Phase 23: the CLI (``apps/cli.py``) on a rig directory of MJPEG
+    videos at the rig's size (see ``run``).  Returns its report."""
+    from vbr_tpu_torch import native
+    from vbr_tpu_torch.apps import cli
+    from vbr_tpu_torch.ops import gmm
+    from vbr_tpu_torch.utils import artifacts
+    from vbr_tpu_torch.utils import video as vio
+    from vbr_tpu_torch.utils.config import MOGParams
+
+    t_phase = time.perf_counter()
+    card = (card_line() or "no nvidia-smi") if dev.type == "cuda" else "cpu"
+    H, W = RIG_HW
+    t0 = time.perf_counter()
+    data = write_cli_rig(build_root, bg_frames, video_frames)
+    write_s = time.perf_counter() - t0
+    size_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                  os.walk(data) for f in fs) / 1e6
+    print(f"  rig directory written in {write_s:.2f} s ({size_mb:.1f} MB: "
+          f"4 x {bg_frames} background and {video_frames} video frames, "
+          f"MJPEG {W}x{H})")
+
+    # -- the reader's forms and the container's counts ---------------------
+    videos = [f"{data}/cam{c}/{n}" for c in range(1, 5)
+              for n in ("background.avi", "video.avi")]
+    for p in videos:
+        want = bg_frames if p.endswith("background.avi") else video_frames
+        expect(vio.video_properties(p) == (W, H, want),
+               f"{p[len(data) + 1:]}: the container's count "
+               f"{vio.video_properties(p)[2]} frames of {W}x{H}")
+    cam1 = f"{data}/cam1/video.avi"
+    every = vio.read_video(cam1)
+    expect(len(every) == video_frames, f"cam1/video.avi decodes to "
+           f"{len(every)} frames, the container's count")
+    it_ok = all(np.array_equal(a, b) for a, b in
+                zip(vio.frame_iterator(cam1), every))
+    picks = sorted({0, video_frames // 2, video_frames - 1})
+    get_ok = all(np.array_equal(vio.get_frame(cam1, i), every[i])
+                 for i in picks) and vio.get_frame(cam1, video_frames) is None
+
+    # -- host decode (PrefetchingSource's camera 1 is the fourth form) ------
+    src = vio.MultiCameraSource(data)
+    n_dec = min(decode_frames, video_frames)
+    t0 = time.perf_counter()
+    held = [src.next_frames() for _ in range(n_dec)]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    src.release()
+    pre = native.PrefetchingSource([f"{data}/cam{c}/video.avi"
+                                    for c in range(1, 5)])
+    t0 = time.perf_counter()
+    n_pre, pre_ok = 0, True
+    while (f := pre.next_frames()) is not None:
+        pre_ok &= n_pre < video_frames and np.array_equal(f[0], every[n_pre])
+        n_pre += 1
+    prefetch_ms = (time.perf_counter() - t0) * 1e3 / max(n_pre, 1)
+    pre.close()
+    expect(it_ok and get_ok and pre_ok and n_pre == video_frames,
+           "read_video, frame_iterator, get_frame (frames "
+           f"{picks}, None past the end) and PrefetchingSource give the "
+           "same frames")
+    del every
+    print(f"  host decode of a 4-camera frame: {decode_ms:.3f} ms "
+          f"(MultiCameraSource, one thread, {n_dec} frames), "
+          f"{prefetch_ms:.3f} ms per frame through PrefetchingSource (4 "
+          f"threads, {n_pre} frames); {card}")
+
+    # -- the commands on the device ----------------------------------------
+    out_d = os.path.abspath(f"{build_root}/cli_out_{dev.type}")
+    out_c = os.path.abspath(f"{build_root}/cli_out_cpu_side")
+    for d in (out_d, out_c):
+        shutil.rmtree(d, ignore_errors=True)
+    # ``pipeline`` and ``masks`` each train from video, ``masks`` writes
+    # the cache the later commands and the CPU side load
+    g = str(grid_edge)
+    common = ["--data", data, "--out-dir", out_d]
+    commands = {
+        "pipeline": ["pipeline", "--grid", g, "--frames", "0", "--ply",
+                     f"{out_d}/stream.ply"],
+        "pipeline --offline": ["pipeline", "--grid", g, "--frames", "0",
+                               "--offline", str(offline_nf), "--ply",
+                               f"{out_d}/offline.ply"],
+        "masks": ["masks"],
+        "carve": ["carve", "--grid", g, "--ply", f"{out_d}/hull.ply"],
+        "carve --batched": ["carve", "--grid", g, "--batched", "--frames",
+                            str(batched), "--ply", f"{out_d}/b"],
+        "mesh": ["mesh", "--grid", g, "--obj", f"{out_d}/hull.obj"],
+        "render": ["render", "--grid", g, "--png", f"{out_d}/render.png"],
+    }
+    launches, seconds, printed = {}, {}, {}
+    chunks = -(-bg_frames // TRAIN_CHUNK)
+    n_cpu = min(cpu_frames, video_frames)
+    steps = {}  # each command's record_steps
+    for name, argv in commands.items():
+        print(f"  {name} on {dev.type}:", flush=True)
+        extra = [] if dev.type == "cuda" else ["--cpu"]
+        for k in kernels:
+            k.launches = 0
+        with watch_training(torch, dev) as trained, \
+                record_steps(n_cpu) as steps[name]:
+            printed[name], seconds[name] = run_cli(cli, argv + common + extra)
+        sync(torch, dev)
+        launches[name] = {k.source.stem: k.launches for k in kernels}
+        if name != "pipeline":
+            continue
+        # the training from video and the stream loop of ``pipeline``
+        (train_s, model), = trained.calls
+        k3_train = launches[name]["mog_train"]
+        expect(dev.type == "cpu" or k3_train == 4 * chunks,
+               f"pipeline's from_data_dir: 4 x {bg_frames} background frames "
+               f"decoded and trained in {train_s:.2f} s, K3 launched "
+               f"{launches[name]['mog_train']} times; {card}")
+        entered = steps[name].entered
+        period = np.diff(entered)[min(3, len(entered) - 2):] * 1e3
+        stream = {"frames": len(entered),
+                  "period_mean_ms": float(period.mean()),
+                  "period_median_ms": float(np.median(period)),
+                  "period_p90_ms": float(np.percentile(period, 90)),
+                  "period_max_ms": float(period.max())}
+        print(f"  the stream loop's period in `pipeline` (PrefetchingSource +"
+              f" process_frame_fast + download) over its {len(period)} "
+              f"frames from the 4th: mean {stream['period_mean_ms']:.3f}, "
+              f"median {stream['period_median_ms']:.3f}, p90 "
+              f"{stream['period_p90_ms']:.3f}, max "
+              f"{stream['period_max_ms']:.3f} ms; {card}")
+        # the same step on frames decoded beforehand (no decoding threads),
+        # and the offline path on 2 chunks and on all the held frames
+        alone = []
+        for fr in held:
+            t0 = time.perf_counter()
+            occ, _ = model.process_frame_fast(fr)
+            occ[:1].cpu()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        stream["step_alone_ms"] = float(np.mean(alone[min(3, len(alone)
+                                                          - 1):]))
+        held = np.stack(held)
+        offline_ms = {}
+        for n in sorted({min(2 * offline_nf, len(held)), len(held)}):
+            t0 = time.perf_counter()
+            model.process_frames_offline(held[:n],
+                                         frames_per_launch=offline_nf)
+            offline_ms[n] = (time.perf_counter() - t0) * 1e3 / n
+        stream["offline_ms_by_frames"] = offline_ms
+        del held
+        print(f"  the same step on {len(alone)} frames decoded beforehand: "
+              f"{stream['step_alone_ms']:.3f} ms/frame; process_frames_offline"
+              f" by frames: {offline_ms} ms/frame; {card}")
+    total = {k.source.stem: sum(v[k.source.stem] for v in launches.values())
+             for k in kernels}
+    n_off = -(-video_frames // offline_nf)
+    want_min = {
+        "pipeline": {"carve_blocked": video_frames,
+                     "ccl_combined": video_frames, "mog_train": 4 * chunks},
+        "pipeline --offline": {"carve_frames": n_off, "ccl_combined": n_off,
+                               "mog_train": 4 * chunks},
+        "masks": {"mog_train": 4 * chunks},
+        "carve --batched": {"carve_frames": 1},
+    }
+    short = [(c, k, launches[c][k], n) for c, want in want_min.items()
+             for k, n in want.items() if launches[c][k] < n]
+    expect(dev.type == "cpu" or not short,
+           f"launches per command {launches} (short of the least expected: "
+           f"{short})")
+    stream_line = printed["pipeline"][-1]
+    expect(stream_line.startswith(f"{video_frames} frames: "),
+           f"pipeline streamed every frame: {stream_line!r}")
+    off_line = next(ln for ln in printed["pipeline --offline"]
+                    if "offline" in ln)
+    cli_stream_ms = float(re.search(r": ([0-9.]+) ms/frame",
+                                    stream_line).group(1))
+    cli_offline_ms = float(re.search(r": ([0-9.]+) ms/frame",
+                                     off_line).group(1))
+    print(f"  pipeline {cli_stream_ms:.0f} ms/frame as it prints it (stream, "
+          f"{video_frames} frames), offline {cli_offline_ms:.1f} ms/frame "
+          f"({offline_nf}/launch); {card}")
+
+    # every frame's occupancy: the stream (K2, K1) against the offline run
+    # (K2, K4) of the same CLI on the same video
+    stream_occ = steps["pipeline"].stream
+    (off_occ, off_colors), = steps["pipeline --offline"].offline
+    differ = [f for f, (occ, _) in enumerate(stream_occ)
+              if not torch.equal(occ.cpu(), torch.from_numpy(off_occ[f]))]
+    expect(len(stream_occ) == video_frames == len(off_occ) and not differ,
+           f"the stream's occupancy equals `--offline {offline_nf}`'s on "
+           f"every one of the {video_frames} frames ({len(stream_occ)} "
+           f"stream and {len(off_occ)} offline frames; differ: "
+           f"{differ[:8]})")
+    n_occ = [int(occ.sum()) for occ, _ in stream_occ]
+    expect(min(n_occ) > 0 and len(set(n_occ)) > 1,
+           f"every frame occupies voxels ({min(n_occ)}-{max(n_occ)}), and "
+           "not the same count on every frame")
+
+    # the models: the cache ``masks`` trained equals ``pipeline``'s
+    cache = f"{out_d}/bg_cache"
+    st1 = artifacts.load_mog_state(f"{cache}/mog_cam1.npz", device="cpu")
+    m1 = model.bg_states[0]
+    expect(all(torch.equal(getattr(st1, n), getattr(m1, n).cpu())
+               for n in ("weight", "mean", "var")),
+           "masks' cache of camera 1 equals the model pipeline trained")
+    del model
+
+    # -- the same commands on the CPU (nothing to compare on the CPU) -------
+    cpu_seconds, cpu_s = {}, 0.0
+    if dev.type == "cpu":
+        print("  the CPU side is skipped: the commands above ran on the CPU")
+    else:
+        shutil.copytree(cache, f"{out_c}/bg_cache")
+        band = slice(H // 2, H // 2 + 8)
+        p1 = MOGParams(history=bg_frames)
+        t0 = time.perf_counter()
+        band_cpu = gmm.train_mog(vio.read_video(
+            f"{data}/cam1/background.avi")[:, band], p1, device="cpu")
+        expect(all(torch.equal(getattr(st1, n)[band], getattr(band_cpu, n))
+                   for n in ("weight", "mean", "var"))
+               and int(st1.nframes) == bg_frames,
+               f"camera 1's model from video, rows {band.start}-"
+               f"{band.stop - 1}, bit-equal to the plain version on the CPU "
+               f"({time.perf_counter() - t0:.1f} s)")
+        n_bat = min(batched, 2)  # a batched carve needs 2 frames
+        nf_cpu = min(offline_nf, n_cpu)  # one chunk, no padding frames
+        cpu_commands = {
+            "pipeline": ["pipeline", "--grid", g, "--frames", str(n_cpu),
+                         "--ply", f"{out_c}/stream.ply"],
+            "pipeline --offline": ["pipeline", "--grid", g, "--frames",
+                                   str(n_cpu), "--offline", str(nf_cpu),
+                                   "--ply", f"{out_c}/offline.ply"],
+            "masks": ["masks"],
+            "carve": ["carve", "--grid", g, "--ply", f"{out_c}/hull.ply"],
+            "carve --batched": ["carve", "--grid", g, "--batched",
+                                "--frames", str(n_bat), "--ply",
+                                f"{out_c}/b"],
+            "mesh": ["mesh", "--grid", g, "--obj", f"{out_c}/hull.obj"],
+            "render": ["render", "--grid", g, "--png",
+                       f"{out_c}/render.png"],
+        }
+        t_cpu = time.perf_counter()
+        cpu_steps = record_steps(n_cpu)
+        with models_from(cache), cpu_steps:
+            for name, argv in cpu_commands.items():
+                print(f"  {name} on the CPU:", flush=True)
+                _, cpu_seconds[name] = run_cli(
+                    cli, argv + ["--cpu", "--data", data, "--out-dir", out_c])
+        cpu_s = time.perf_counter() - t_cpu
+        files = (["stream.ply", "offline.ply", "hull.ply", "hull.obj",
+                  "render.png"] + [f"mask_cam{c}.png" for c in range(1, 5)]
+                 + [f"b.{i}.ply" for i in range(n_bat)])
+        bad = same_files(out_d, out_c, files)
+        expect(not bad, f"the card's output files equal the CPU's byte for "
+               f"byte: {files} (differ: {bad}); CPU side {cpu_s:.1f} s")
+        (cpu_occ, cpu_colors), = cpu_steps.offline
+        same_stream = len(cpu_steps.stream) == n_cpu and all(
+            torch.equal(a.cpu(), b) and torch.equal(ca.cpu(), cb)
+            for (a, ca), (b, cb) in zip(stream_occ, cpu_steps.stream))
+        same_offline = np.array_equal(off_occ[:n_cpu], cpu_occ) \
+            and same_colors(off_colors, cpu_colors)
+        expect(same_stream and same_offline,
+               f"the card's first {n_cpu} frames of `pipeline` (occupancy "
+               f"and colours) and of `--offline` (occupancy and each "
+               f"frame's colours) equal the CPU's (stream {same_stream}, "
+               f"offline {same_offline})")
+    for name in ("stream.ply", "hull.ply"):
+        with open(f"{out_d}/{name}") as f:
+            head = f.read(200)
+        n_vox = int(re.search(r"element vertex (\d+)", head).group(1))
+        expect(n_vox > 0, f"{name}: {n_vox} voxels")
+
+    # -- calibrate --mode extrinsics on phase 20's scene ---------------------
+    t0 = time.perf_counter()
+    sc = extrinsics_scene(torch, dev, ext_hw, ext_cams, bg_frames=ext_bg_frames)
+    ext = write_extrinsics_rig(build_root, sc, ext_hw)
+    ext_out = os.path.abspath(f"{build_root}/cli_ext_out")
+    shutil.rmtree(ext_out, ignore_errors=True)
+    cams_arg = ",".join(str(c) for c in range(1, ext_cams + 1))
+    lines, ext_s = run_cli(cli, ["calibrate", "--mode", "extrinsics",
+                                 "--cams", cams_arg, "--data", ext,
+                                 "--out-dir", ext_out]
+                           + ([] if dev.type == "cuda" else ["--cpu"]))
+    from vbr_tpu_torch.utils import xmlio
+    from vbr_tpu_torch.utils.config import CameraParams
+
+    got = [CameraParams.from_arrays(*xmlio.load_camera_config(
+        f"{ext_out}/cam{c}")) for c in range(1, ext_cams + 1)]
+    errs, flipped = pose_errors(got, sc.cams)
+    expect(all(r < EXT_BOUND_RAD and t < EXT_BOUND_MM for r, t in errs)
+           and all(os.path.exists(f"{ext_out}/cam{c}/"
+                                  "checkerboard_imagepoints.jpg")
+                   for c in range(1, ext_cams + 1)),
+           f"calibrate --mode extrinsics on MJPEG video: every pose within "
+           f"{EXT_BOUND_RAD} rad and {EXT_BOUND_MM} mm "
+           f"({[(round(r, 5), round(t, 2)) for r, t in errs]}, global frame "
+           f"flipped: {flipped}) in {ext_s:.1f} s (scene "
+           f"{time.perf_counter() - t0 - ext_s:.1f} s)")
+
+    seconds_phase = time.perf_counter() - t_phase
+    return {"card": card, "frames": video_frames,
+            "background_frames": bg_frames, "grid": grid_edge,
+            "write_s": write_s, "decode_ms_per_frame": decode_ms,
+            "prefetch_ms_per_frame": prefetch_ms, "train_s": train_s,
+            "k3_launches_training": k3_train, "stream": stream,
+            "cli_stream_ms": cli_stream_ms,
+            "cli_offline_ms": cli_offline_ms, "launches": launches,
+            "launches_cli": total, "seconds": seconds,
+            "cpu_seconds": cpu_seconds, "cpu_side_s": cpu_s,
+            "extrinsics": {"pose_errors": errs, "seconds": ext_s},
+            "seconds_phase": seconds_phase}
+
+
+def write_extrinsics_rig(root, sc, image_hw):
+    """Phase 20's scene ``sc`` as a rig directory: each camera's
+    intrinsics (``config.xml``), ``checkerboard.avi``, ``background.avi``
+    and ``video.avi`` (the person frame), MJPEG."""
+    from vbr_tpu_torch.native import VideoSink
+    from vbr_tpu_torch.utils import xmlio
+
+    H, W = image_hw
+    data = f"{root}/cli_ext_rig_{H}x{W}"
+    shutil.rmtree(data, ignore_errors=True)
+    xmlio.save_storage(f"{data}/checkerboard.xml",
+                       {"CheckerBoardWidth": CALIB_PATTERN[0],
+                        "CheckerBoardHeight": CALIB_PATTERN[1],
+                        "CheckerBoardSquareSize": CALIB_SQUARE})
+    for c, cp in enumerate(sc.cams, start=1):
+        xmlio.save_camera_config(f"{data}/cam{c}", cp.K, cp.dist,
+                                 np.zeros(3), np.zeros(3))
+        for name, frames in (("checkerboard.avi", sc.boards[c - 1]),
+                             ("background.avi", sc.backs[c - 1]),
+                             ("video.avi", sc.person[c - 1][None])):
+            with VideoSink(f"{data}/cam{c}/{name}", CLI_FPS, W, H) as s:
+                for f in frames:
+                    s.write(f)
+    return data
+
+
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         mask_params=None, train_frames=TRAIN_FRAMES, k3_frames=TRAIN_CHUNK,
         label_large_hw=(1088, 1920), label_cap=LABEL_CAP,
@@ -3568,7 +4148,10 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         calib_iters=CALIB_ITERS, ext_hw=RIG_HW, ext_cams=4,
         ext_iters=EXT_ITERS, ext_bg_frames=EXT_BG_FRAMES, ext_grid=EXT_GRID,
         viewer_grid=VIEWER_GRID, viewer_hw=VIEWER_HW,
-        viewer_points=VIEWER_POINTS):
+        viewer_points=VIEWER_POINTS, cli_frames=(CLI_BG_FRAMES,
+                                                 CLI_VIDEO_FRAMES),
+        cli_grid=CLI_GRID, cli_nf=(CLI_OFFLINE_NF, CLI_BATCHED,
+                                   CLI_CPU_FRAMES)):
     """All phases on ``device`` for a rig of ``image_hw`` images, a
     ``grid`` (default: the production 128³) and cameras of focal length
     ``focal``, comparing K3 on a chunk of ``k3_frames`` frames and training
@@ -3584,7 +4167,11 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     ``ext_bg_frames`` background frames and a carve A/B grid of
     ``ext_grid``³, and the viewer's headless render of the rig at
     ``viewer_grid``³ and of ``viewer_points`` lattice points at
-    ``viewer_hw``; returns the per-kernel report."""
+    ``viewer_hw``, and the CLI on a rig directory of ``cli_frames``
+    (background, video) frames per camera at ``cli_grid``³, with
+    ``cli_nf`` (``--offline`` frames per launch, ``carve --batched``
+    frames, frames of the CPU side), its calibration on the extrinsics'
+    scene; returns the per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -4105,6 +4692,19 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
                                         viewer_grid, viewer_hw, viewer_points)
     print(f"  phase 22 in {viewer_render['seconds']:.1f} s")
 
+    # -- [23] the CLI on video files -----------------------------------------
+    print(f"[23] the CLI on a rig directory of MJPEG videos: 4 x "
+          f"{cli_frames[0]} background and {cli_frames[1]} video frames at "
+          f"{RIG_HW[1]}x{RIG_HW[0]}, --grid {cli_grid}; calibrate on the "
+          "extrinsics' scene", flush=True)
+    cli_report = cli_phase(
+        torch, dev, kernels, bg_frames=cli_frames[0],
+        video_frames=cli_frames[1], grid_edge=cli_grid,
+        offline_nf=cli_nf[0], batched=cli_nf[1], cpu_frames=cli_nf[2],
+        ext_hw=ext_hw, ext_cams=ext_cams, ext_bg_frames=ext_bg_frames)
+    print(f"  phase 23 in {cli_report['seconds_phase']:.1f} s")
+    launches_cli = cli_report["launches_cli"]
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -4124,22 +4724,26 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
             row(cb.K1, "K1 carve_blocked", "vbr_tpu/ops/carve_pallas.py:673",
                 k1_err, k1_ms, k1_plain_ms, k1_bound, k1_bound_by,
                 launches[0], profile, "carve_blocked_kernel", launch=k1_plan,
-                launches_sharded=sharded_launches["carve_blocked"]),
+                launches_sharded=sharded_launches["carve_blocked"],
+                launches_cli=launches_cli["carve_blocked"]),
             row(ccl_label.K2, "K2 ccl_combined",
                 "vbr_tpu/ops/ccl_pallas.py:143", k2_err, k2_ms, k2_plain_ms,
                 k2_bound, k2_bound_by, launches[1], profile, "CombinedRule",
                 kernel_route=k2_route,
-                launches_sharded=sharded_launches["ccl_combined"]),
+                launches_sharded=sharded_launches["ccl_combined"],
+                launches_cli=launches_cli["ccl_combined"]),
             row(gmm.K3, "K3 mog_train", "vbr_tpu/ops/gmm.py:435", k3_err,
                 k3_ms, k3_plain_ms, k3_bound, k3_bound_by, k3_launches,
-                k3_profile, "mog_train_kernel", launch=k3_plan),
+                k3_profile, "mog_train_kernel", launch=k3_plan,
+                launches_cli=launches_cli["mog_train"]),
             row(cb.K4, "K4 carve_frames", "vbr_tpu/ops/carve_pallas.py:1212",
                 k4_err, k4_ms, k4_plain_ms, k4_bound, k4_bound_by,
                 k4_launches, offline_profile, "carve_frames_kernel",
-                launch=k4_plan),
+                launch=k4_plan, launches_cli=launches_cli["carve_frames"]),
             row(ccl_label.K5, "K5 ccl_label", "vbr_tpu/ops/ccl_pallas.py:67",
                 k5_err, k5_ms, k5_plain_ms, k5_bound, k5_bound_by,
-                k5_launches, kernel_route=k5_route),
+                k5_launches, kernel_route=k5_route,
+                launches_cli=launches_cli["ccl_label"]),
         ],
         "clock": {"launch_floor_ms": launch_floor_ms,
                   "k1_ms_zeroing_flush": k1_ms_zeroing_flush},
@@ -4160,6 +4764,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "extrinsics": extrinsics,
         "sharded": sharded,
         "viewer_render": viewer_render,
+        "cli": cli_report,
     }
 
 
@@ -4225,13 +4830,10 @@ def main() -> int:
               "from the repository root", file=sys.stderr)
         return 2
     print("[1] device", flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        print(f"chip_smoke: nvidia-smi failed: {smi.stderr}", file=sys.stderr)
+    card = card_line()
+    if card is None:
+        print("chip_smoke: nvidia-smi failed", file=sys.stderr)
         return 1
-    card = smi.stdout.strip().splitlines()[0]
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     try:

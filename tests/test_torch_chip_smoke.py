@@ -66,7 +66,8 @@ def test_phases_run_on_cpu_small_rig(capsys):
                             calib_iters=30, ext_hw=(243, 322), ext_cams=2,
                             ext_iters=20, ext_bg_frames=8, ext_grid=32,
                             viewer_grid=32, viewer_hw=(72, 96),
-                            viewer_points=20_000)
+                            viewer_points=20_000, cli_frames=(1, 2),
+                            cli_grid=32, cli_nf=(2, 2, 1))
     names = [k["name"] for k in report["kernels"]]
     assert names == ["K1 carve_blocked", "K2 ccl_combined", "K3 mog_train",
                      "K4 carve_frames", "K5 ccl_label"]
@@ -78,6 +79,7 @@ def test_phases_run_on_cpu_small_rig(capsys):
                 else {"launch"})
         if k["name"][:2] in ("K1", "K2"):  # also counted on phase 21's path
             more |= {"launches_sharded"}
+        more |= {"launches_cli"}  # counted on phase 23's CLI commands
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "profiler_ms"} | more
@@ -313,6 +315,44 @@ def test_phases_run_on_cpu_small_rig(capsys):
                  "20000 seeded points of the 32^3 lattice"):
         assert f"ok: {what}" in out
     assert "the render's share" in out
+    # phase 23: the CLI on MJPEG videos at the rig's size, here 1
+    # background and 2 video frames per camera at --grid 32
+    assert "[23] the CLI on a rig directory of MJPEG videos" in out
+    cr = report["cli"]
+    assert (cr["frames"], cr["background_frames"], cr["grid"]) == (2, 1, 32)
+    assert cr["card"] == "cpu" and cr["stream"]["frames"] == 2
+    assert set(cr["launches"]) == {
+        "pipeline", "pipeline --offline", "masks", "carve",
+        "carve --batched", "mesh", "render"}
+    assert set(cr["launches_cli"]) == {"carve_blocked", "ccl_combined",
+                                       "mog_train", "carve_frames",
+                                       "ccl_label"}
+    assert cr["decode_ms_per_frame"] > 0 and cr["prefetch_ms_per_frame"] > 0
+    assert cr["train_s"] > 0 and cr["cli_offline_ms"] > 0
+    assert len(cr["extrinsics"]["pose_errors"]) == 2
+    for what in ("cam1/video.avi: the container's count 2 frames of 644x486",
+                 "cam4/background.avi: the container's count 1 frames",
+                 "cam1/video.avi decodes to 2 frames, the container's count",
+                 "read_video, frame_iterator, get_frame (frames [0, 1], "
+                 "None past the end) and PrefetchingSource give the same",
+                 "pipeline's from_data_dir: 4 x 1 background frames decoded "
+                 "and trained", "pipeline streamed every frame: '2 frames: ",
+                 "masks' cache of camera 1 equals the model pipeline trained",
+                 "the stream's occupancy equals `--offline 2`'s on every one "
+                 "of the 2 frames (2 stream and 2 offline frames; differ: [])",
+                 "every frame occupies voxels (",
+                 "stream.ply: ", "hull.ply: ",
+                 "calibrate --mode extrinsics on MJPEG video: every pose "
+                 "within 0.01 rad and 25.0 mm"):
+        assert f"ok: {what}" in out
+    # on the CPU the commands' CPU side would compare the CPU with itself
+    assert "  the CPU side is skipped: the commands above ran on the CPU" in out
+    assert cr["cpu_seconds"] == {} and cr["stream"]["period_mean_ms"] > 0
+    for line in ("    | wrote ", "    | marching tetrahedra: ",
+                 "    | batched carve: 2 frames in ",
+                 "    | 2 frames offline (2/launch): ",
+                 "    | orientation vote: {"):
+        assert line in out
 
 
 def test_crossing_sweeps_meet_inside_every_band():

@@ -11,6 +11,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "vbr_tpu_torch.apps.assignment_api",
+    "vbr_tpu_torch.apps.cli",
     "vbr_tpu_torch.models.visual_hull",
     "vbr_tpu_torch.native",
     "vbr_tpu_torch.native.build",
@@ -42,6 +43,7 @@ MODULES = [
     "vbr_tpu_torch.utils.config",
     "vbr_tpu_torch.utils.device",
     "vbr_tpu_torch.utils.imageproc",
+    "vbr_tpu_torch.utils.preview",
     "vbr_tpu_torch.utils.profiling",
     "vbr_tpu_torch.utils.roi",
     "vbr_tpu_torch.utils.synthetic",
@@ -57,13 +59,16 @@ MODULES = [
     "vbr_tpu_torch.viewer.scene",
     "chip_smoke",
 ]
-# the viewer modules the card's machine imports, which has no PyOpenGL,
-# glfw or PIL
+# the modules that import without PyOpenGL, glfw or PIL (the card's
+# machine has no PyOpenGL or glfw)
 GL_FREE = [
     "vbr_tpu_torch.viewer.models3d",
     "vbr_tpu_torch.viewer.scene",
     "vbr_tpu_torch.viewer.headless",
     "vbr_tpu_torch.viewer.gl_engine",
+    "vbr_tpu_torch.utils.video",
+    "vbr_tpu_torch.native",
+    "vbr_tpu_torch.apps.cli",
     "chip_smoke",
 ]
 
@@ -88,9 +93,10 @@ def test_port_imports_without(blocked):
 
 @pytest.mark.parametrize("blocked", ["OpenGL", "glfw", "PIL"])
 def test_viewer_imports_without(blocked):
-    """``models3d``, ``scene``, ``headless`` and ``gl_engine`` import, and
-    the headless renderer and ``save_png`` run, with ``blocked`` absent
-    (and JAX, ``vbr_tpu`` and cv2 too)."""
+    """``models3d``, ``scene``, ``headless``, ``gl_engine``, the video
+    module, the native module and the CLI import, and the headless
+    renderer, ``save_png`` and an uncompressed AVI's round trip run, with
+    ``blocked`` absent (and JAX, ``vbr_tpu`` and cv2 too)."""
     code = (
         "import sys\n"
         f"for name in ('jax', 'vbr_tpu', 'cv2', {blocked!r}):\n"
@@ -105,6 +111,13 @@ def test_viewer_imports_without(blocked):
         "path = os.path.join(tempfile.mkdtemp(), 'x.png')\n"
         "headless.save_png(path, img)\n"
         "assert os.path.getsize(path) > 50\n"
+        "import numpy as np\n"
+        "from vbr_tpu_torch.utils import video\n"
+        "avi = os.path.join(tempfile.mkdtemp(), 'x.avi')\n"
+        "frame = np.arange(5 * 7 * 3, dtype=np.uint8).reshape(5, 7, 3)\n"
+        "with video.AviWriter(avi, 10.0, 7, 5, fourcc='BI_RGB') as w:\n"
+        "    w.write(frame)\n"
+        "assert (video.read_video(avi)[0] == frame).all()\n"
         f"assert sys.modules[{blocked!r}] is None\n"
         "print('ok')\n"
     )

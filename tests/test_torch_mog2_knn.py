@@ -326,7 +326,8 @@ def test_background_pipeline_from_a_reference_cache(tmp_path):
         str(tmp_path / "no_data"), num_cameras=2, mask_params=jmp,
         cache_dir=str(tmp_path))
     tpipe = tbackground.BackgroundPipeline(
-        str(tmp_path), num_cameras=2, mask_params=MASK_PARAMS, device=CPU)
+        str(tmp_path / "no_data"), num_cameras=2, mask_params=MASK_PARAMS,
+        cache_dir=str(tmp_path), device=CPU)
     assert [p.history for p in tpipe.mog_params] == [40, 41]
     want = jpipe.masks_for_frames(frames)
     assert 0 < (want > 0).mean() < 1
@@ -347,12 +348,13 @@ def test_background_pipeline_from_frames_writes_the_cache(tmp_path):
     frames = np.stack([s[0] for s in seqs])
     frames[:, 4:10, 6:16] = 5
     first = tbackground.BackgroundPipeline(
-        str(tmp_path), num_cameras=2, mask_params=MASK_PARAMS,
+        None, num_cameras=2, mask_params=MASK_PARAMS, cache_dir=str(tmp_path),
         background_frames=seqs, device=CPU)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "mog_cam1.npz", "mog_cam2.npz"]
     second = tbackground.BackgroundPipeline(
-        str(tmp_path), num_cameras=2, mask_params=MASK_PARAMS, device=CPU)
+        None, num_cameras=2, mask_params=MASK_PARAMS, cache_dir=str(tmp_path),
+        device=CPU)
     assert [p.history for p in first.mog_params] == [5, 5]
     got = first.masks_for_frames(frames)
     np.testing.assert_array_equal(second.masks_for_frames(frames), got)
@@ -367,8 +369,9 @@ def test_background_pipeline_from_frames_writes_the_cache(tmp_path):
 
 @pytest.mark.parametrize("cache", [False, True])
 def test_background_pipeline_needs_a_cache_or_frames(tmp_path, cache):
-    """Neither a cached model nor background frames: a clear ValueError,
-    and no video is opened."""
+    """Neither a cached model, background frames nor a data directory: a
+    clear ValueError, and no video is opened."""
     with pytest.raises(ValueError, match="background_frames"):
-        tbackground.BackgroundPipeline(str(tmp_path) if cache else None,
-                                       num_cameras=2, device=CPU)
+        tbackground.BackgroundPipeline(
+            None, num_cameras=2, cache_dir=str(tmp_path) if cache else None,
+            device=CPU)

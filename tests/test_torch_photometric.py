@@ -12,6 +12,7 @@ run on the port.
 ``vbr_tpu``'s objective is a closure inside ``photometric_calibrate``; the
 tests take it from the ``jax.value_and_grad`` call there."""
 
+import functools
 import os
 import sys
 
@@ -143,7 +144,12 @@ def test_blobs_and_lattice_exact(frames):
     assert nm == nmj >= 24
 
 
-def test_collect_board_views_takes_frames_and_refuses_a_path(frames):
+def test_collect_board_views_takes_frames_and_refuses_a_path(frames,
+                                                             tmp_path):
+    """Frames or a video path (here an uncompressed AVI of the same frames,
+    read back exactly) give the same views; a missing path raises."""
+    from vbr_tpu_torch.utils import video as tvio
+
     got = tpc.collect_board_views(iter(frames), PATTERN, frame_step=2,
                                   max_views=2, deoverlay=False)
     want = [jpc.board_view_from_frame(frames[i], i, PATTERN, deoverlay=False)
@@ -151,9 +157,21 @@ def test_collect_board_views_takes_frames_and_refuses_a_path(frames):
     assert [v.frame_idx for v in got] == [0, 2]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.H, b.H)
-    for call in (tpc.collect_board_views, tpc.calibrate_video_photometric):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call("cam1/intrinsics.avi")
+    path = str(tmp_path / "intrinsics.avi")
+    h, w = frames[0].shape[:2]
+    with tvio.AviWriter(path, 10.0, w, h, fourcc="BI_RGB") as sink:
+        for f in frames[:3]:
+            sink.write(f)
+    from_path = tpc.collect_board_views(path, PATTERN, frame_step=2,
+                                        max_views=2, deoverlay=False)
+    assert [v.frame_idx for v in from_path] == [0, 2]
+    for a, b in zip(from_path, got):
+        np.testing.assert_array_equal(a.H, b.H)
+    missing = str(tmp_path / "cam1" / "intrinsics.avi")
+    for call in (tpc.collect_board_views, functools.partial(
+            tpc.calibrate_video_photometric, device="cpu")):
+        with pytest.raises(FileNotFoundError, match="cannot open video"):
+            call(missing)
 
 
 # -- the objective -------------------------------------------------------------

@@ -702,7 +702,8 @@ def _port_state(synthetic, frames):
     rig = tconfig.RigConfig(image_height=H, image_width=W)
     return tapp.ViewerState(
         source=ArraySource(frames),
-        background=BackgroundPipeline(synthetic.models,
+        background=BackgroundPipeline(synthetic.data,
+                                      cache_dir=synthetic.models,
                                       mask_params=MASK_PARAMS, device="cpu"),
         recon=trec.Reconstructor(trec.load_rig(synthetic.data),
                                  tconfig.GridConfig(**GRID), rig,
@@ -864,9 +865,10 @@ def test_the_viewer_floor_spans_width_by_depth(synthetic, tmp_path,
 
 def test_the_viewer_keys_carve_and_mesh(synthetic, monkeypatch):
     """``G`` shows the next frame's carve, ``M`` its surface, ``F`` and
-    ``Escape`` flip their flags; without a source the viewer refuses."""
-    with pytest.raises(ValueError, match="source"):
-        tapp.run_viewer(synthetic.data)
+    ``Escape`` flip their flags; without a source and without the rig's
+    videos the viewer raises before it opens a window."""
+    with pytest.raises(FileNotFoundError, match="video.avi"):
+        tapp.run_viewer(synthetic.data, device="cpu")
     glfw = _fake_gl(monkeypatch, teng)
     _small_rig(monkeypatch)
     tapp.run_viewer(synthetic.data, tconfig.AppConfig(

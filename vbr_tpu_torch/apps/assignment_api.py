@@ -7,13 +7,14 @@ the stateful semantics of the reference's ``assignment.py``) runs on the
 port once the module is configured:
 
     from vbr_tpu_torch.apps import assignment_api as assignment
-    from vbr_tpu_torch.utils.video import ArraySource
-    assignment.configure("data", ArraySource(frames), "data/models")
+    assignment.configure("data")
     positions, colors = assignment.set_voxel_positions(128, 64, 128)
 
-The JAX package decodes the rig's videos itself; the port has no decoder
-yet, so ``configure`` takes the frame source and the background models.
-The model (rig, background models, carve tables) is made on the first
+As in ``vbr_tpu``, the frames are the rig's ``cam*/video.avi`` and the
+background models are trained on its ``cam*/background.avi`` (kernel K3);
+``configure`` also takes another frame source (``utils.video.ArraySource``)
+and the models' npz directory or decoded background frames.  The model
+(rig, background models, carve tables) is made on the first
 ``set_voxel_positions`` call, and each call takes one frame of every
 camera from the source.
 """
@@ -42,18 +43,20 @@ _model_kw: dict = {}
 _model = None
 
 
-def configure(data_dir: str, source,
-              background: Union[str, Sequence[np.ndarray]],
+def configure(data_dir: Optional[str], source=None,
+              background: Union[None, str, Sequence[np.ndarray]] = None,
               device="cuda", **model_kw) -> None:
     """Point the module at a rig and a stream; drops any model made before.
 
     ``data_dir`` holds ``cam{i}/config.xml`` and ``checkerboard.xml``;
     ``source`` has ``next_frames()`` → (C, H, W, 3) u8 BGR or None at the
-    end (``utils.video.ArraySource``); ``background`` is a directory of
+    end (default: ``utils.video.MultiCameraSource(data_dir)``, opened at the
+    first ``set_voxel_positions``); ``background`` is a directory of
     ``mog_cam{i}.npz`` (as ``VisualHull.save_background_models`` of either
-    package writes them) or one sequence of decoded background frames per
-    camera, (T, H, W, 3) u8, trained with kernel K3.  ``device`` and
-    ``model_kw`` go to ``VisualHull.from_data_dir``."""
+    package writes them), one sequence of decoded background frames per
+    camera, (T, H, W, 3) u8, or None: the rig's ``cam{i}/background.avi``.
+    Both are trained with kernel K3.  ``device`` and ``model_kw`` go to
+    ``VisualHull.from_data_dir``."""
     global _data_dir, _source, _background, _device, _model_kw, _model
     _data_dir = data_dir
     _source = source
@@ -77,7 +80,8 @@ def _make_model(grid: GridConfig) -> VisualHull:
                 f"no mog_cam{{1..{model.rig.num_cameras}}}.npz in "
                 f"{_background}")
     else:
-        model.train_background(_background)
+        model.train_background(_data_dir if _background is None
+                               else _background)
     return model
 
 
@@ -87,12 +91,15 @@ def set_voxel_positions(width: int, height: int, depth: int):
 
     ``height`` is HALF the Y voxel count, like the reference.  The grid is
     fixed by the first call.  Returns ([], []) at the end of the stream."""
-    global _model
-    if _source is None:
-        raise RuntimeError("call configure(data_dir, source, background) "
-                           "first")
+    global _model, _source
+    if _data_dir is None:
+        raise RuntimeError("call configure(data_dir) first")
     if _model is None:
         _model = _make_model(GridConfig(nx=width, ny=height * 2, nz=depth))
+        if _source is None:
+            from vbr_tpu_torch.utils.video import MultiCameraSource
+
+            _source = MultiCameraSource(_data_dir)
 
     frames = _source.next_frames()
     if frames is None:

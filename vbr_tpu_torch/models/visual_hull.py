@@ -196,32 +196,34 @@ class VisualHull:
     def from_data_dir(cls, data_dir: str, grid: GridConfig = GridConfig(),
                       train_background: bool = True, **kw) -> "VisualHull":
         """A model of the rig in ``data_dir`` (``cam*/config.xml``); ``kw``
-        goes to the constructor.  ``train_background=True`` would decode
-        ``cam*/background.avi``, which waits for a video decoder without
-        OpenCV: pass False, then :meth:`load_background_models` or
-        :meth:`train_background` on decoded frames."""
+        goes to the constructor.  With ``train_background`` each camera's
+        model is trained on ``cam*/background.avi`` (kernel K3); without,
+        call :meth:`load_background_models` or :meth:`train_background`."""
+        model = cls(reconstruction.load_rig(data_dir), grid, **kw)
         if train_background:
-            raise NotImplementedError(
-                "from_data_dir(train_background=True) decodes the rig's "
-                "background videos, and the port has no video decoder yet; "
-                "pass train_background=False and load or train the models")
-        return cls(reconstruction.load_rig(data_dir), grid, **kw)
+            model.train_background(data_dir)
+        return model
 
-    def train_background(self, frames_per_camera: Sequence[np.ndarray]):
-        """Train one MOG model per camera on its decoded background
-        sequence, ``frames_per_camera[c]`` (T_c, H, W, 3) u8 BGR, with
-        ``MOGParams(history=T_c)``; sets ``bg_states`` / ``mog_params``.
+    def train_background(self, source):
+        """Train one MOG model per camera with ``MOGParams(history=T_c)``;
+        sets ``bg_states`` / ``mog_params``.  ``source`` is a data
+        directory, whose ``cam{c}/background.avi`` is decoded (as
+        ``vbr_tpu`` trains), or one decoded background sequence per camera,
+        ``source[c]`` (T_c, H, W, 3) u8 BGR."""
+        if isinstance(source, (str, os.PathLike)):
+            from vbr_tpu_torch.utils import video as vio
 
-        The JAX package's form takes a ``data_dir`` and decodes
-        ``cam*/background.avi`` itself; that form waits until the rig data
-        and a decoder without OpenCV are in the repository."""
-        if len(frames_per_camera) != self.rig.num_cameras:
+            data_dir = source
+            source = (vio.read_video(os.path.join(  # one camera at a time
+                data_dir, f"cam{cam}", "background.avi"))
+                for cam in range(1, self.rig.num_cameras + 1))
+        elif len(source) != self.rig.num_cameras:
             raise ValueError(
                 f"expected {self.rig.num_cameras} background sequences, got "
-                f"{len(frames_per_camera)}")
+                f"{len(source)}")
         self.bg_states = []
         self.mog_params = []
-        for frames in frames_per_camera:
+        for frames in source:
             p = MOGParams(history=frames.shape[0])
             self.bg_states.append(background.train_background_model(
                 frames, p, device=self.device))

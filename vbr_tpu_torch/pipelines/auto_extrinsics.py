@@ -23,7 +23,10 @@ in a CUDA graph and replayed); Adam runs on the host in f64 numpy, as in
 ``device``.
 
 Frames come as arrays or iterables of (H, W, 3) u8 BGR frames, one per
-camera: decoding a video waits for the port's decoder.
+camera, or, in ``vbr_tpu``'s forms, from a path: ``temporal_mean_gray``
+and ``median_background`` read a video file, ``quick_person_masks`` and
+``auto_extrinsics`` a rig directory (``cam{i}/checkerboard.avi``,
+``background.avi``, ``video.avi``), all through ``utils/video.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,13 +57,36 @@ _PATTERN = (8, 6)
 # ---------------------------------------------------------------------------
 
 
+def _is_path(x) -> bool:
+    return isinstance(x, (str, os.PathLike))
+
+
+def _rig_dirs(data_dir, cam_indices, count: int) -> List[str]:
+    """The ``cam{c}/`` directories of a rig directory, for ``cam_indices``
+    (default 1 .. ``count``), in that order."""
+    idx = list(cam_indices or range(1, count + 1))
+    if len(idx) != count:
+        raise ValueError("cam_indices must match cameras")
+    return [os.path.join(os.fspath(data_dir), f"cam{c}") for c in idx]
+
+
+def _frames(source):
+    """Frames of a video path, or ``source`` itself (an array or an
+    iterable of frames)."""
+    if _is_path(source):
+        from vbr_tpu_torch.utils import video as vio
+
+        return vio.frame_iterator(os.fspath(source))
+    return source
+
+
 def temporal_mean_gray(frames, max_frames: int = 64) -> np.ndarray:
     """Mean grayscale image (f64) over the first ``max_frames`` of
-    ``frames`` (an array or iterable of BGR frames; the board is static),
-    summed frame by frame as ``vbr_tpu`` sums them."""
+    ``frames`` (a video path, or an array or iterable of BGR frames; the
+    board is static), summed frame by frame as ``vbr_tpu`` sums them."""
     acc = None
     n = 0
-    for frame in frames:
+    for frame in _frames(frames):
         g = (0.114 * frame[..., 0] + 0.587 * frame[..., 1]
              + 0.299 * frame[..., 2])
         acc = g if acc is None else acc + g
@@ -67,6 +94,8 @@ def temporal_mean_gray(frames, max_frames: int = 64) -> np.ndarray:
         if n >= max_frames:
             break
     if acc is None:
+        if _is_path(frames):
+            raise IOError(f"no frames in {frames}")
         raise ValueError("no frames")
     return acc / n
 
@@ -74,10 +103,11 @@ def temporal_mean_gray(frames, max_frames: int = 64) -> np.ndarray:
 def median_background(frames, samples: int = 12,
                       step: int = 10) -> np.ndarray:
     """Per-pixel median BGR background (f64) over every ``step``-th of
-    ``frames``, ``samples`` of them: ``np.median``, which averages the two
-    middle values of an even count."""
+    ``frames`` (a video path, or an array or iterable of frames),
+    ``samples`` of them: ``np.median``, which averages the two middle
+    values of an even count."""
     picked = []
-    for i, frame in enumerate(frames):
+    for i, frame in enumerate(_frames(frames)):
         if i % step == 0:
             picked.append(frame)
         if len(picked) >= samples:
@@ -602,12 +632,30 @@ def flip_pose_180(rvec, tvec, square_mm: float = 115.0, pattern=_PATTERN):
 # ---------------------------------------------------------------------------
 
 
-def quick_person_masks(backgrounds, frames, threshold: float = 35.0,
-                       device="cuda") -> np.ndarray:
+def quick_person_masks(backgrounds, frames=None, threshold: float = 35.0,
+                       device="cuda", *, num_cameras: Optional[int] = None,
+                       frame_index: int = 0,
+                       cam_indices=None) -> np.ndarray:
     """(C, H, W) u8 foreground masks of one synchronized (H, W, 3) u8
     frame per camera against that camera's background image (as
     :func:`median_background` gives it): the largest changed region,
-    crude but synchronized, enough for orientation voting."""
+    crude but synchronized, enough for orientation voting.
+
+    ``vbr_tpu``'s form ``quick_person_masks(data_dir, num_cameras=4,
+    frame_index=0, threshold=35.0, cam_indices=None)``: ``backgrounds`` is
+    a rig directory, and ``num_cameras`` may stand second, in the place of
+    ``frames``; per camera of ``cam_indices`` (default 1 ..
+    ``num_cameras``) the median of ``background.avi`` and frame
+    ``frame_index`` of ``video.avi``.  Any other second argument, or
+    ``num_cameras`` given twice, raises ``TypeError``; so do the path
+    form's keywords beside arrays."""
+    if _is_path(backgrounds):
+        backgrounds, frames = _person_inputs(
+            backgrounds, frames, num_cameras, frame_index, cam_indices)
+    elif num_cameras is not None or cam_indices is not None \
+            or frame_index != 0:
+        raise TypeError("num_cameras, frame_index and cam_indices belong to "
+                        "the data_dir form")
     masks = []
     for bg, frame in zip(backgrounds, frames):
         region = largest_change_region(bg, np.asarray(frame), threshold,
@@ -617,6 +665,30 @@ def quick_person_masks(backgrounds, frames, threshold: float = 35.0,
             else np.zeros(bg.shape[:2], np.uint8)
         )
     return np.stack(masks)
+
+
+def _person_inputs(data_dir, second, num_cameras, frame_index, cam_indices):
+    """``quick_person_masks``' path form → its array form's (backgrounds,
+    frames)."""
+    from vbr_tpu_torch.utils import video as vio
+
+    if second is not None:
+        if not isinstance(second, int) or isinstance(second, bool):
+            raise TypeError(f"quick_person_masks(data_dir, ...) takes "
+                            f"num_cameras second, not "
+                            f"{type(second).__name__}")
+        if num_cameras is not None:
+            raise TypeError("num_cameras given twice")
+        num_cameras = second
+    # as in vbr_tpu, cam_indices wins over num_cameras
+    count = len(cam_indices) if cam_indices else \
+        4 if num_cameras is None else num_cameras
+    dirs = _rig_dirs(data_dir, cam_indices, count)
+    backgrounds = [median_background(os.path.join(d, "background.avi"))
+                   for d in dirs]
+    frames = [vio.get_frame(os.path.join(d, "video.avi"), frame_index)
+              for d in dirs]
+    return backgrounds, frames
 
 
 # ---------------------------------------------------------------------------
@@ -634,16 +706,41 @@ class AutoExtrinsicsResult:
     votes: Dict[Tuple[bool, ...], int]
 
 
+def _rig_inputs(data_dir, second, third, cameras, cam_indices,
+                resolve_orientation):
+    """``auto_extrinsics``' path form → its array form's (boards,
+    backgrounds, person frames, cameras)."""
+    from vbr_tpu_torch.utils import video as vio
+
+    if cameras is None:
+        cameras, second = second, None
+    if second is not None or third is not None:
+        raise TypeError("auto_extrinsics(data_dir, cameras, ...) reads the "
+                        "frames from data_dir; pass no frames beside it")
+    if cameras is None or not all(isinstance(c, CameraParams)
+                                  for c in cameras):
+        raise TypeError("auto_extrinsics(data_dir, cameras, ...) needs a "
+                        "sequence of CameraParams second")
+    dirs = _rig_dirs(data_dir, cam_indices, len(cameras))
+    boards = [vio.frame_iterator(os.path.join(d, "checkerboard.avi"))
+              for d in dirs]
+    backs = [os.path.join(d, "background.avi") for d in dirs]
+    person = ([vio.get_frame(os.path.join(d, "video.avi"), 0) for d in dirs]
+              if resolve_orientation and len(cameras) >= 2 else None)
+    return boards, backs, person, list(cameras)
+
+
 def auto_extrinsics(
     checkerboard_frames,
-    background_frames,
-    person_frames,
-    cameras: Sequence[CameraParams],
+    background_frames=None,
+    person_frames=None,
+    cameras: Optional[Sequence[CameraParams]] = None,
     square_mm: float = 115.0,
     pattern=_PATTERN,
     photometric_iters: int = 400,
     resolve_orientation: bool = True,
     device="cuda",
+    cam_indices: Optional[Sequence[int]] = None,
 ) -> AutoExtrinsicsResult:
     """Fully automatic extrinsics of a rig (see the module docstring).
 
@@ -654,7 +751,22 @@ def auto_extrinsics(
     frame, 12 of them, gives the median background); ``person_frames`` one
     synchronized (H, W, 3) u8 frame with the person in view, for the vote
     (unused without ``resolve_orientation`` or with one camera).
+
+    ``vbr_tpu``'s form ``auto_extrinsics(data_dir, cameras, ...,
+    cam_indices=None)``: the first argument is a rig directory and the
+    cameras come second (or as ``cameras=``); camera i reads
+    ``cam{cam_indices[i]}/`` (default 1 .. len(cameras)): its
+    ``checkerboard.avi``, ``background.avi`` and frame 0 of ``video.avi``.
+    Frames beside a path, or no cameras, raise ``TypeError``; so does
+    ``cam_indices`` beside arrays.
     """
+    if _is_path(checkerboard_frames):
+        checkerboard_frames, background_frames, person_frames, cameras = \
+            _rig_inputs(checkerboard_frames, background_frames,
+                        person_frames, cameras, cam_indices,
+                        resolve_orientation)
+    elif cam_indices is not None:
+        raise TypeError("cam_indices belongs to the data_dir form")
     dev = resolve_device(device)
     cand = []
     n_blobs, n_matched, mses, backgrounds = [], [], [], []

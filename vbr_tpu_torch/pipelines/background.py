@@ -12,9 +12,8 @@ pre-morphology), its ROI form ``raw_masks_batched_fz_roi`` with
 ``raw_masks_batched`` (the same head on the uncompressed states),
 ``extract_foreground_mask`` (one camera's whole mask stage, with its three
 cleanup routes) and ``BackgroundPipeline`` (per-camera models from npz
-files or background frames, and their masks).  The pipeline's decoder
-branch (``background.avi`` read when no model is cached) is not ported:
-frames come as arrays.
+files, background frames or the rig's ``background.avi``, and their
+masks).
 """
 
 from __future__ import annotations
@@ -91,19 +90,23 @@ class BackgroundPipeline:
     Camera c's model (1-based file names) is ``cache_dir/mog_cam{c}.npz``
     where that file exists (schema 2, as either package writes it), else
     trained on ``device`` from ``background_frames[c - 1]`` ((T, H, W, 3)
-    u8 BGR) and written to the cache when ``cache_dir`` is given.  A
-    camera with neither raises ``ValueError``: no video is opened."""
+    u8 BGR) when given, else from ``data_dir/cam{c}/background.avi``, and
+    then written to the cache when ``cache_dir`` is given.  Without
+    ``data_dir`` a camera with neither model nor frames raises
+    ``ValueError``."""
 
     def __init__(
         self,
-        cache_dir: Optional[str] = None,
+        data_dir: Optional[str] = None,
         num_cameras: int = 4,
         mask_params: Sequence[MaskParams] = DEFAULT_MASK_PARAMS,
         mog_params: Optional[MOGParams] = None,
+        cache_dir: Optional[str] = None,
         background_frames=None,
         device="cuda",
     ):
         from vbr_tpu_torch.utils import artifacts
+        from vbr_tpu_torch.utils import video as vio
 
         dev = resolve_device(device)
         self.mask_params = list(mask_params)
@@ -116,18 +119,23 @@ class BackgroundPipeline:
                      if cache_path else None)
             if state is not None:
                 p = mog_params or MOGParams(history=int(state.nframes))
-            elif background_frames is not None:
-                frames = background_frames[cam - 1]
+            else:
+                if background_frames is not None:
+                    frames = background_frames[cam - 1]
+                elif data_dir is not None:
+                    frames = vio.read_video(os.path.join(
+                        data_dir, f"cam{cam}", "background.avi"))
+                else:
+                    raise ValueError(
+                        f"camera {cam}: no background model "
+                        f"({cache_path or 'no cache_dir'}), no "
+                        "background_frames and no data_dir; pass cache_dir= "
+                        "with mog_cam{c}.npz files, background_frames= or "
+                        "a data_dir with cam{c}/background.avi")
                 p = mog_params or MOGParams(history=frames.shape[0])
                 state = train_background_model(frames, p, device=dev)
                 if cache_path:
                     artifacts.save_mog_state(cache_path, state)
-            else:
-                raise ValueError(
-                    f"camera {cam}: no background model "
-                    f"({cache_path or 'no cache_dir'}) and no background "
-                    "frames; pass cache_dir= with mog_cam{c}.npz files or "
-                    "background_frames=")
             self.states.append(state)
             self.mog_params.append(p)
 

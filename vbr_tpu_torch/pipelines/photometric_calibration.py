@@ -27,8 +27,8 @@ replayed; the graph runs the same kernels as the eager step (``route=
 
 ``BoardView`` and ``PhotoCalibResult`` hold numpy arrays with the same
 fields as the JAX package's, so views and warm starts cross between the
-packages.  Frames come as arrays: decoding a video waits for the port's
-decoder (ROADMAP Queue 1 item 8).
+packages.  Frames come as arrays or iterables of frames, or as a video
+path, decoded frame by frame through ``utils/video.py``.
 """
 
 from __future__ import annotations
@@ -345,10 +345,11 @@ def board_view_from_frame(
 
 
 def _frames_from(frames) -> Iterable[np.ndarray]:
+    """The frames of a video path (decoded one by one), or ``frames``."""
     if isinstance(frames, (str, os.PathLike)):
-        raise NotImplementedError(
-            "the port has no video decoder yet (ROADMAP Queue 1 item 8): "
-            "pass the decoded frames, an iterable of (H, W, 3) u8 BGR arrays")
+        from vbr_tpu_torch.utils import video as vio
+
+        return vio.frame_iterator(os.fspath(frames))
     return frames
 
 
@@ -361,7 +362,8 @@ def collect_board_views(
     deoverlay: bool = True,
 ) -> List[BoardView]:
     """The board in every ``frame_step``-th frame of an iterable of
-    (H, W, 3) u8 BGR frames, up to ``max_views`` views."""
+    (H, W, 3) u8 BGR frames (or of a video path), up to ``max_views``
+    views."""
     views: List[BoardView] = []
     for fi, frame in enumerate(_frames_from(frames)):
         if fi % frame_step:
@@ -807,7 +809,7 @@ def calibrate_video_photometric(
     fix_pp: Optional[Tuple[float, float]] = None,
 ) -> Tuple[PhotoCalibResult, List[BoardView]]:
     """Intrinsic calibration of one camera's board frames (an iterable of
-    (H, W, 3) u8 BGR arrays), detector-free: blob-lattice view collection
+    (H, W, 3) u8 BGR arrays, or a video path), detector-free: blob-lattice view collection
     (host), the corner LM on the H-predicted corners as warm start
     (``device``), then the photometric fit on ``device``, nuisances first
     (min(400, iters/6) steps), then everything."""

@@ -3,14 +3,15 @@
 Counterpart of ``vbr_tpu/pipelines/validation.py``: world-origin axes, a
 cube, the detected corners drawn onto a BGR u8 frame in place (plain numpy
 rasterization, the same pixels as the JAX package's), and the mean
-reprojection error, all on the host in f64.  Its
-``test_camera_parameters_with_image`` reads a checkerboard video frame and
-writes a JPEG through OpenCV; the port has no decoder or encoder yet, so
-that one waits (ROADMAP Queue 1 item 8).
+reprojection error, all on the host in f64; and
+``test_camera_parameters_with_image``, the AR check drawn on a
+checkerboard video frame (decoded by ``utils/video.py``) and written as a
+JPEG through PIL.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -101,6 +102,33 @@ def draw_chessboard_corners(img: np.ndarray, pts: np.ndarray,
     for i, p in enumerate(pts):
         draw_circle(img, p, 4, rainbow[(i // bw) % len(rainbow)], 1)
     return img
+
+
+def test_camera_parameters_with_image(
+    data_dir: str,
+    camera: int,
+    out_path: str,
+    draw: str = "axes",
+    frame_index: int = 0,
+):
+    """Draw the AR check for one camera (``draw="axes"`` or a cube) on
+    frame ``frame_index`` of its ``checkerboard.avi``, save it as a JPEG
+    and return the frame (camera_calibration.py:824-864 equivalent)."""
+    from vbr_tpu_torch.utils import video as vio
+    from vbr_tpu_torch.utils import xmlio
+
+    cam_dir = os.path.join(data_dir, f"cam{camera}")
+    K, dist, rvec, tvec = xmlio.load_camera_config(cam_dir)
+    frame = vio.get_frame(os.path.join(cam_dir, "checkerboard.avi"),
+                          frame_index)
+    if frame is None:
+        raise FileNotFoundError("no checkerboard frame")
+    if draw == "axes":
+        draw_axes(frame, K, dist, rvec, tvec)
+    else:
+        draw_cube(frame, K, dist, rvec, tvec)
+    vio.write_jpeg(out_path, frame)
+    return frame
 
 
 def reprojection_error(obj_pts, img_pts, K, dist, rvec, tvec) -> float:

@@ -14,9 +14,10 @@ the floor checkerboard uses the square prop, and voxels use the cube prop
 
 Consumes ONLY the reconstruction pipeline's public contract — positions +
 colors arrays — exactly like the reference viewer's 4-function seam
-(executable.py:9).  The port has no video decoder, so the frames come from
-a ``utils.video`` frame source (``ArraySource``) and the background models
-from ``BackgroundPipeline``'s ``cache_dir`` or ``background_frames``.  What
+(executable.py:9).  As in ``vbr_tpu``, the frames come from the rig's
+``cam*/video.avi`` (``utils.video.MultiCameraSource``) and the background
+models are trained on its ``background.avi``; ``source=``, ``cache_dir=``
+and ``background_frames=`` replace either.  What
 ``G`` and ``M`` compute, ``recarve`` and ``rebuild_surface``, are module
 functions over a ``ViewerState``, so they run without a window.  The floor
 spans ``world_width × world_depth`` (``vbr_tpu`` passes the width twice).
@@ -92,14 +93,27 @@ def run_viewer(data_dir: str, config: AppConfig = AppConfig(),
                cache_dir: str | None = None, background_frames=None,
                device="cuda"):
     """Open the window on the rig of ``data_dir`` (``cam{i}/config.xml``)
-    and show the frames of ``source``; the background models come from
-    ``cache_dir`` (``mog_cam{i}.npz``) or are trained from
-    ``background_frames`` (see ``BackgroundPipeline``).  Needs PyOpenGL and
+    and show the frames of ``source`` (default: the rig's
+    ``cam{i}/video.avi``); the background models come from ``cache_dir``
+    (``mog_cam{i}.npz``), ``background_frames`` or the rig's
+    ``background.avi`` (see ``BackgroundPipeline``).  Needs PyOpenGL and
     glfw."""
-    if source is None:
-        raise ValueError(
-            "run_viewer needs source= (a utils.video frame source such as "
-            "ArraySource): the port decodes no video")
+    from vbr_tpu_torch.utils.video import MultiCameraSource
+
+    # pipeline state, made before the window: a missing video raises here
+    grid = GridConfig(
+        nx=config.world_width, ny=config.world_height * 2, nz=config.world_depth
+    )
+    rig = RigConfig()
+    cams = reconstruction.load_rig(data_dir)
+    state = ViewerState(
+        source=MultiCameraSource(data_dir) if source is None else source,
+        background=BackgroundPipeline(
+            data_dir, cache_dir=cache_dir,
+            background_frames=background_frames, device=device),
+        recon=reconstruction.Reconstructor(cams, grid, rig, device=device),
+    )
+
     import glfw
     from OpenGL import GL as gl
 
@@ -138,19 +152,6 @@ def run_viewer(data_dir: str, config: AppConfig = AppConfig(),
     camera = eng.FlyCamera()
     surface = eng.StaticMesh()
     frusta = eng.Lines()
-
-    # pipeline state
-    grid = GridConfig(
-        nx=config.world_width, ny=config.world_height * 2, nz=config.world_depth
-    )
-    rig = RigConfig()
-    cams = reconstruction.load_rig(data_dir)
-    state = ViewerState(
-        source=source,
-        background=BackgroundPipeline(
-            cache_dir, background_frames=background_frames, device=device),
-        recon=reconstruction.Reconstructor(cams, grid, rig, device=device),
-    )
 
     floor_pos, floor_col, cam_pos, cam_col = scene.floor_and_cam_instances(
         cams, config.world_width, config.world_depth

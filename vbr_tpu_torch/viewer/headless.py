@@ -218,17 +218,19 @@ def render_floor_and_cameras(
 
 
 def save_png(path: str, img):
-    """Write an (H, W, 3) u8 RGB image (tensor or array) as an 8-bit RGB
-    PNG with the standard library (zlib, every row filter 0), which any
-    PNG decoder reads back."""
+    """Write an (H, W, 3) u8 RGB image, or an (H, W) u8 grey one (tensor or
+    array), as an 8-bit PNG with the standard library (zlib, every row
+    filter 0), which any PNG decoder reads back."""
     if isinstance(img, torch.Tensor):
         img = img.cpu().numpy()
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"save_png wants (H, W, 3) u8 RGB, got "
-                         f"{img.shape} {img.dtype}")
-    H, W, _ = img.shape
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * 3)],
+    grey = img.ndim == 2
+    if img.dtype != np.uint8 or not (grey or img.ndim == 3
+                                     and img.shape[2] == 3):
+        raise ValueError(f"save_png wants (H, W, 3) u8 RGB or (H, W) u8 "
+                         f"grey, got {img.shape} {img.dtype}")
+    H, W = img.shape[:2]
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, -1)],
                          axis=1).tobytes()
 
     def chunk(kind, body):
@@ -238,6 +240,7 @@ def save_png(path: str, img):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8,
+                                             0 if grey else 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw))
                 + chunk(b"IEND", b""))
