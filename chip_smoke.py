@@ -233,9 +233,30 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      command's kernel launches counted; the same commands with ``--cpu``
      on the card's cache (``pipeline`` over the first 4 frames),
      every output file byte-equal to the card's; a band of camera 1's
-     model retrained on the CPU, bit-equal; and ``calibrate --mode
+     model retrained on the CPU, bit-equal; ``calibrate --mode
      extrinsics`` on phase 20's scene written as MJPEG video, every pose
-     within 0.01 rad and 25 mm.
+     within 0.01 rad and 25 mm; and ``calibrate`` of intrinsics with
+     ``--discard`` on an MJPEG video of 8 boards rendered at cam1's real
+     poses and a ninth with fy stretched 8 % (which it discards), on the
+     card and with ``--cpu``: both write ``intrinsic_params_cam1.png``
+     (1800x500), byte-equal where their printed digits agree, else with
+     K within phase 19's rtol 1e-6.
+ 24. the manual corner session and the reports (``apps/manual_corners``,
+     ``pipelines/reports``): ``ManualCornerSession`` on the 3 of phase
+     19's cam1 boards whose inner corners lie nearest the clicked quad's
+     homography, clicked at the projected true outer corners each moved
+     a seeded 1-2 px, one click undone and made again, on the card and on
+     the CPU: every refined corner within 1e-3 px, their distance to
+     the true inner corners and ms per session printed;
+     ``plot_mask_comparison`` of phase 20's KNN, MOG (the K3-trained
+     model's raw masks) and MOG2 masks of one frame, read back at
+     (600·3)x(500·C); ``plot_intrinsic_results`` of cam1's discard views
+     calibrated "all views" and "after discard" on the card and on the
+     CPU, read back at 1800x500, byte-equal where the printed digits
+     agree (else within rtol 1e-6); ``render_mesh_snapshot`` of phase
+     16's rig mesh at 128^3 on the card bit-equal to the CPU, its ms on
+     both with the triangle count, ``plot_mesh_snapshot`` read back at
+     1000x1000 equal to it; each figure's ms.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -1360,11 +1381,12 @@ def three_cubes():
 
 
 def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
-                  occ_c, col_c, seq, rig, step_ms):
+                  occ_c, col_c, seq, rig, step_ms, keep=None):
     """Phase 16: the surface path (see ``run``) on ``model`` (the seeded
     synthetic rig) and ``rig.model`` (phase 14's rig), against the CPU
     occupancies ``occ_c``/``col_c`` of ``frame0`` and those of the rig
-    frames; ``step_ms`` is phase 5's.  Returns its report."""
+    frames; ``step_ms`` is phase 5's.  Keeps the rig frame's triangles in
+    ``keep`` (for phase 24).  Returns its report."""
     from scipy import ndimage
 
     from vbr_tpu_torch.models.visual_hull import (
@@ -1451,6 +1473,8 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
             f"rig frame {k} (CPU carve {time.perf_counter() - t0:.1f} s)")
     k0 = SURFACE_RIG_FRAMES[0]
     rig0, fr0 = held[f"rig {k0}"], rig.frames[k0]
+    if keep is not None:
+        keep["rig_tris"] = rig0["tris"]
 
     # times: the step on both inputs, then on the rig frame the program
     # alone, the download and the placement
@@ -2521,10 +2545,11 @@ def calib_rel_err(a, b):
 
 
 def calibration_phase(torch, dev, image_hw=CALIB_HW, views=None,
-                      iters=CALIB_ITERS, build_root="build"):
+                      iters=CALIB_ITERS, build_root="build", keep=None):
     """Phase 19: intrinsic calibration (see ``run``) on boards rendered at
     the real cameras and poses of ``CALIB_NPZ``, at ``image_hw`` (K
     scaled), the first ``views`` poses per camera, ``iters`` Adam steps.
+    Keeps cam1's boards and its discard views in ``keep`` (for phase 24).
     Returns its report."""
     from vbr_tpu_torch.ops import color, corners
     from vbr_tpu_torch.pipelines import calibration as calib
@@ -2667,6 +2692,9 @@ def calibration_phase(torch, dev, image_hw=CALIB_HW, views=None,
            f"the same views kept and dropped on {dev.type} and on the CPU "
            f"(dropped {out[3]})")
     rep["discarded"] = out[3]
+    if keep is not None:
+        keep["board"] = rigs[1]
+        keep["discard"] = (pts, out[0], (W, H))
     part("discard")
     cam_dir = os.path.join(build_root, "calib_config", "cam1")
     xmlio.save_camera_config(cam_dir, lm1.K, lm1.dist, lm1.rvecs[0],
@@ -2859,14 +2887,15 @@ def pose_errors(cams, truth):
 def extrinsics_phase(torch, dev, bg_seqs, tr_states, tr_params, frames,
                      seeded_states, models_dir, rig_frame, mask_params,
                      image_hw=RIG_HW, n_cams=4, iters=EXT_ITERS,
-                     bg_frames=EXT_BG_FRAMES, ab_grid=EXT_GRID):
+                     bg_frames=EXT_BG_FRAMES, ab_grid=EXT_GRID, keep=None):
     """Phase 20 (see ``run``): extrinsic calibration on ``extrinsics_scene``
     at ``image_hw`` with ``n_cams`` cameras, ``iters`` photometric steps and
     ``bg_frames`` background frames, then MOG2, KNN, ``raw_masks_batched``
     and ``BackgroundPipeline`` on phase 10's sequences ``bg_seqs``, its
     trained states ``tr_states`` (``tr_params``) and the synthetic rig's
     ``frames``, and on phase 14's seeded models (``seeded_states``, written
-    to ``models_dir``) with its ``rig_frame``.  Returns its report."""
+    to ``models_dir``) with its ``rig_frame``.  Keeps the three models'
+    masks of ``frames`` in ``keep`` (for phase 24).  Returns its report."""
     from vbr_tpu_torch.ops import corners, gmm
     from vbr_tpu_torch.pipelines import auto_extrinsics as ax
     from vbr_tpu_torch.pipelines import background
@@ -3097,6 +3126,13 @@ def extrinsics_phase(torch, dev, bg_seqs, tr_states, tr_params, frames,
     expect(torch.equal(raw.cpu(), raw_c),
            f"raw_masks_batched over {len(frames)} cameras on {dev.type} "
            "and on the CPU equal")
+    if keep is not None:  # the reference's comparison grid, on one frame
+        keep["masks"] = {
+            "KNN": np.stack([gmm.extract_mask_knn(knn[c], frames[c]).cpu()
+                             .numpy() for c in range(len(frames))]),
+            "MOG": raw.cpu().numpy(),
+            "MOG2": np.stack([gmm.extract_mask_mog2(mog[c], frames[c]).cpu()
+                              .numpy() for c in range(len(frames))])}
     pipes = {
         "frames": (background.BackgroundPipeline(
             num_cameras=len(bg_seqs), mask_params=mask_params,
@@ -3590,6 +3626,10 @@ CLI_BATCHED = 8  # ``carve --batched --frames N``
 CLI_CPU_FRAMES = 4  # frames of ``pipeline`` on the CPU side
 CLI_DECODE_FRAMES = 32  # frames decoded in sequence, timed, then stepped
 CLI_WALK = (40, 3)  # px: the subject's walk across the frame and its bob
+CLI_CALIB_VIEWS = 8  # cam1's board views of ``calibrate`` (intrinsics)
+CLI_CALIB_SS = 2  # their supersampling per axis
+CLI_BAD_FY = 1.08  # one more view with fy this much longer: ``--discard``
+# drops it (removing it lowers the RMS by more than 0.15 px)
 
 
 def card_line():
@@ -3808,9 +3848,10 @@ def cli_phase(torch, dev, kernels, bg_frames=CLI_BG_FRAMES,
               offline_nf=CLI_OFFLINE_NF, batched=CLI_BATCHED,
               cpu_frames=CLI_CPU_FRAMES, decode_frames=CLI_DECODE_FRAMES,
               ext_hw=RIG_HW, ext_cams=4, ext_bg_frames=EXT_BG_FRAMES,
-              build_root="build"):
+              calib_views=CLI_CALIB_VIEWS, build_root="build"):
     """Phase 23: the CLI (``apps/cli.py``) on a rig directory of MJPEG
-    videos at the rig's size (see ``run``).  Returns its report."""
+    videos at the rig's size (see ``run``), and ``calibrate`` of intrinsics
+    on ``calib_views`` board views.  Returns its report."""
     from vbr_tpu_torch import native
     from vbr_tpu_torch.apps import cli
     from vbr_tpu_torch.ops import gmm
@@ -4100,6 +4141,9 @@ def cli_phase(torch, dev, kernels, bg_frames=CLI_BG_FRAMES,
            f"flipped: {flipped}) in {ext_s:.1f} s (scene "
            f"{time.perf_counter() - t0 - ext_s:.1f} s)")
 
+    # -- calibrate (intrinsics) with --discard: the plot of its runs ------
+    intrinsics = cli_calibrate_intrinsics(torch, dev, build_root, calib_views)
+
     seconds_phase = time.perf_counter() - t_phase
     return {"card": card, "frames": video_frames,
             "background_frames": bg_frames, "grid": grid_edge,
@@ -4111,7 +4155,97 @@ def cli_phase(torch, dev, kernels, bg_frames=CLI_BG_FRAMES,
             "launches_cli": total, "seconds": seconds,
             "cpu_seconds": cpu_seconds, "cpu_side_s": cpu_s,
             "extrinsics": {"pose_errors": errs, "seconds": ext_s},
+            "intrinsics": intrinsics,
             "seconds_phase": seconds_phase}
+
+
+def hold_plot_pair(equal, digits_agree, rtol, what):
+    """Two plots of calibrations made on the card and on the CPU: byte-equal
+    where their printed digits agree; where a digit flipped, a drawn
+    coordinate may round to another pixel, so phase 19's bound on the
+    calibrations (``rtol`` ≤ 1e-6) holds instead."""
+    if digits_agree:
+        expect(equal, f"{what}: byte-equal card vs CPU (their printed "
+               "digits agree)")
+    else:
+        expect(rtol <= 1e-6, f"{what}: the card's and the CPU's printed "
+               "digits differ, so the plots are not held byte for byte; "
+               f"phase 19's bound holds instead: rtol {rtol:.1e} <= 1e-6")
+
+
+def cli_calibrate_intrinsics(torch, dev, build_root, views):
+    """Phase 23's ``calibrate`` of intrinsics with ``--discard`` on
+    ``write_board_video``'s ``views`` + 1 boards, on ``dev`` and (for a
+    card) with ``--cpu``: the plot written by both, byte-equal where the
+    printed digits agree.  Returns its report."""
+    from vbr_tpu_torch.apps import cli
+
+    t0 = time.perf_counter()
+    intr = write_board_video(torch, dev, build_root, views)
+    intr_lines, intr_png = {}, {}
+    for side in ("card", "cpu") if dev.type == "cuda" else ("cpu",):
+        out = os.path.abspath(f"{build_root}/cli_intr_out_{side}")
+        shutil.rmtree(out, ignore_errors=True)
+        lines, _ = run_cli(cli, ["calibrate", "--cams", "1", "--data", intr,
+                                 "--out-dir", out, "--frame-interval", "1",
+                                 "--discard", "--no-annotate"]
+                           + ([] if side == "card" else ["--cpu"]))
+        intr_lines[side] = [ln for ln in lines if "rms" in ln]
+        png = f"{out}/intrinsic_params_cam1.png"
+        expect(os.path.exists(png) and read_png(png).shape == (500, 1800, 3)
+               and not any("skipped" in ln for ln in lines),
+               f"calibrate ({side}) writes {os.path.basename(png)}, 1800x500")
+        with open(png, "rb") as f:
+            intr_png[side] = f.read()
+        expect(any("discarded" in ln for ln in lines),
+               f"calibrate --discard ({side}) drops the view rendered with "
+               f"fy x {CLI_BAD_FY}: {intr_lines[side]}")
+    intr_equal = None
+    if dev.type == "cuda":
+        from vbr_tpu_torch.utils import xmlio
+
+        intr_equal = intr_png["card"] == intr_png["cpu"]
+        Ks = [xmlio.load_camera_config(
+            os.path.abspath(f"{build_root}/cli_intr_out_{s}/cam1"))[0]
+            for s in ("card", "cpu")]
+        hold_plot_pair(intr_equal, intr_lines["card"] == intr_lines["cpu"],
+                       rel_err(Ks[0], Ks[1]), "calibrate's intrinsics plot "
+                       f"({intr_lines['card']})")
+    intr_s = time.perf_counter() - t0
+    print(f"  calibrate (intrinsics, {views} + 1 views, --discard): "
+          f"{intr_lines['cpu']}; plot byte-equal card vs --cpu: "
+          f"{intr_equal}; {intr_s:.1f} s")
+    return {"lines": intr_lines, "plot_equal": intr_equal, "seconds": intr_s}
+
+
+def write_board_video(torch, dev, root, views):
+    """A directory for ``calibrate`` of intrinsics: ``checkerboard.xml`` and
+    ``cam1/checkerboard.avi`` (MJPEG, the rig's size) of ``views`` boards
+    rendered on ``dev`` at cam1's poses of ``CALIB_NPZ`` (every
+    ``CLI_CALIB_SS``² samples per pixel), then one more with fy stretched
+    by ``CLI_BAD_FY``, which ``--discard`` drops."""
+    from vbr_tpu_torch.native import VideoSink
+    from vbr_tpu_torch.utils import xmlio
+
+    H, W = RIG_HW
+    data = f"{root}/cli_intr_rig_{views}"
+    shutil.rmtree(data, ignore_errors=True)
+    xmlio.save_storage(f"{data}/checkerboard.xml",
+                       {"CheckerBoardWidth": CALIB_PATTERN[0],
+                        "CheckerBoardHeight": CALIB_PATTERN[1],
+                        "CheckerBoardSquareSize": CALIB_SQUARE})
+    K, dist, rvecs, tvecs = calib_truth(1, RIG_HW, views + 1)
+    bad = K.copy()
+    bad[1, 1] *= CLI_BAD_FY
+    frames = np.concatenate([
+        render_boards(torch, dev, K, dist, rvecs[:-1], tvecs[:-1], RIG_HW,
+                      ss=CLI_CALIB_SS),
+        render_boards(torch, dev, bad, dist, rvecs[-1:], tvecs[-1:], RIG_HW,
+                      ss=CLI_CALIB_SS)])
+    with VideoSink(f"{data}/cam1/checkerboard.avi", CLI_FPS, W, H) as sink:
+        for f in frames:
+            sink.write(f)
+    return data
 
 
 def write_extrinsics_rig(root, sc, image_hw):
@@ -4138,6 +4272,209 @@ def write_extrinsics_rig(root, sc, image_hw):
                 for f in frames:
                     s.write(f)
     return data
+
+
+SESSION_VIEWS = 3  # phase 19's board views clicked through a session:
+# those where the lens moves the inner corners least from the clicked
+# quad's homography (corner_subpix's 5-pixel window starts near them)
+SESSION_JITTER = (1.0, 2.0)  # px: the seeded offset of each click
+SESSION_TOL_PX = 1e-3  # the corner phases' card-vs-CPU bound
+REPORT_MODELS = ("KNN", "MOG", "MOG2")  # the reference's comparison grid
+
+
+def outer_corners(K, dist, rvec, tvec):
+    """(4, 2) f64 projections of the board's outer corners: one square
+    beyond the inner lattice on every side (``render_boards``' board)."""
+    from vbr_tpu_torch.ops import camera as cam_ops
+
+    cols, rows = CALIB_PATTERN
+    s = CALIB_SQUARE
+    obj = np.array([[-s, -s, 0], [cols * s, -s, 0], [cols * s, rows * s, 0],
+                    [-s, rows * s, 0]], np.float64)
+    return cam_ops.project_points(obj, rvec, tvec, K, dist)
+
+
+def click_session(session_cls, gray, clicks, device):
+    """A ``ManualCornerSession`` on ``device`` fed ``clicks`` (4 points):
+    all four, one undone, the last clicked again → its lattice."""
+    s = session_cls(gray, CALIB_PATTERN, device=device)
+    for x, y in clicks:
+        s.click(x, y)
+    expect(s.done, "four clicks interpolate the lattice")
+    s.undo()
+    expect(not s.done and len(s.clicks) == 3, "undo drops the lattice and "
+           "the last click")
+    s.click(*clicks[-1])
+    expect(s.done, "the fourth click again gives the lattice back")
+    return s.result
+
+
+def intrinsic_runs(calib, pts_all, pts_kept, image_wh, device):
+    """``calibrate``'s runs: all views, then after discard."""
+    runs = []
+    for label, pts in (("all views", pts_all), ("after discard", pts_kept)):
+        if label == "after discard" and len(pts) == len(pts_all):
+            break  # nothing discarded
+        res = calib.calibrate_camera(pts, image_wh, CALIB_PATTERN,
+                                     CALIB_SQUARE, device=device)
+        runs.append(dict(label=label, rms=res.rms,
+                         per_view_errors=res.per_view_errors, K=res.K,
+                         intrinsic_std=res.intrinsic_std))
+    return runs
+
+
+def printed_digits(runs):
+    """What ``calibrate`` prints of each run: rms to 3 decimals, K to 2."""
+    return [(f"{r['rms']:.3f}", *(f"{r['K'][i, j]:.2f}" for i, j in
+                                  ((0, 0), (1, 1), (0, 2), (1, 2))))
+            for r in runs]
+
+
+def reports_phase(torch, dev, board, discard, masks, tris,
+                  build_root="build"):
+    """Phase 24: the manual corner session and the reports (see ``run``).
+    ``board``: cam1's (K, dist, rvecs, tvecs, frames) of phase 19;
+    ``discard``: (points of its first views, those
+    ``discard_bad_image_points`` kept, (w, h)); ``masks``: {model: (C, H, W)}
+    of phase 20; ``tris``: phase 16's rig mesh.  Returns its report."""
+    from vbr_tpu_torch.apps.manual_corners import ManualCornerSession
+    from vbr_tpu_torch.ops import color
+    from vbr_tpu_torch.pipelines import calibration as calib
+    from vbr_tpu_torch.pipelines import reports
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(build_root, "reports")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rep = {}
+
+    # -- the manual corner session ----------------------------------------
+    from vbr_tpu_torch.ops import corners
+
+    K, dist, rvecs, tvecs, frames = board
+    rng = np.random.default_rng(SEED + 24)
+    truth = true_corners(K, dist, rvecs, tvecs)
+    lens_px = np.array([np.linalg.norm(
+        corners.interpolate_image_points_from_corners(
+            outer_corners(K, dist, rv, tv), CALIB_PATTERN)[:, None]
+        - t[None], axis=-1).min(1).max()
+        for rv, tv, t in zip(rvecs, tvecs, truth)])
+    views = np.sort(np.argsort(lens_px, kind="stable")[:SESSION_VIEWS])
+    worst_dev, n_all = 0.0, 0
+    to_truth, ms = [], {"card": [], "cpu": []}
+    for i in views:
+        gray = color.bgr_to_gray_u8(torch.from_numpy(frames[i])).numpy()
+        quad = outer_corners(K, dist, rvecs[i], tvecs[i])
+        off = rng.uniform(*SESSION_JITTER, quad.shape) * rng.choice(
+            [-1.0, 1.0], quad.shape)
+        clicks = [tuple(p) for p in quad + off]
+        got = {}
+        for side, d in (("card", dev), ("cpu", cpu)):
+            got[side], s = timed_s(lambda: click_session(
+                ManualCornerSession, gray, clicks, d), torch, d)
+            ms[side].append(s * 1e3)
+        expect(all(isinstance(g, np.ndarray) and g.shape == truth[i].shape
+                   for g in got.values()),
+               f"view {i}: the session's result is an {truth[i].shape} "
+               "numpy lattice on both devices")
+        worst_dev = max(worst_dev,
+                        float(np.abs(got["card"] - got["cpu"]).max()))
+        n_all += len(got["card"])
+        # the lattice starts at the clicked quad's top-left corner, the
+        # truth at the board's first inner corner: compare as point sets
+        to_truth.append(np.linalg.norm(got["card"][:, None] - truth[i][None],
+                                       axis=-1).min(1))
+    expect(worst_dev <= SESSION_TOL_PX,
+           f"the manual corner session on {len(views)} views (clicks "
+           f"{SESSION_JITTER} px off the true outer corners, one undone): "
+           f"all {n_all} refined corners, {dev.type} and the CPU within "
+           f"{worst_dev:.1e} px (<= {SESSION_TOL_PX})")
+    to_truth = np.concatenate(to_truth)
+    rep["session"] = {"views": views.tolist(), "max_diff_px": worst_dev,
+                      "corners": n_all,
+                      "lens_px": float(lens_px[views].max()),
+                      "err_vs_truth_px": {"median": float(np.median(to_truth)),
+                                          "max": float(to_truth.max())},
+                      "ms_per_session": {k: float(np.median(v))
+                                         for k, v in ms.items()}}
+    # the homography ignores the lens: where the distortion moves a corner
+    # further than corner_subpix's 5-pixel window reaches, it stays off
+    print(f"  session on views {views.tolist()} (the homography's lattice "
+          f"at most {lens_px[views].max():.2f} px from the inner corners): "
+          f"refined lattice vs the true inner corners, median "
+          f"{np.median(to_truth):.3f} px, worst {to_truth.max():.3f} px; "
+          f"ms per session {dev.type} "
+          f"{rep['session']['ms_per_session']['card']:.1f}, CPU "
+          f"{rep['session']['ms_per_session']['cpu']:.1f}")
+
+    # -- the mask grid ------------------------------------------------------
+    path = os.path.join(out_dir, "background_models_mask_comparisons.png")
+    _, s = timed_s(lambda: reports.plot_mask_comparison(masks, path),
+                   torch, cpu)
+    C = len(next(iter(masks.values())))
+    img = read_png(path)
+    expect(img.shape == (500 * C, 600 * len(masks), 3),
+           f"{os.path.basename(path)} reads back at {img.shape[1]}x"
+           f"{img.shape[0]} ({len(masks)} models x {C} cameras)")
+    rep["mask_grid_ms"] = s * 1e3
+
+    # -- the intrinsics plot, card and CPU --------------------------------
+    pts_all, pts_kept, wh = discard
+    runs = {side: intrinsic_runs(calib, pts_all, pts_kept, wh, d)
+            for side, d in (("card", dev), ("cpu", cpu))}
+    paths = {}
+    for side, r in runs.items():
+        paths[side] = os.path.join(out_dir, f"intrinsic_params_{side}.png")
+        _, s = timed_s(lambda: reports.plot_intrinsic_results(
+            r, paths[side]), torch, cpu)
+        rep.setdefault("intrinsics_ms", {})[side] = s * 1e3
+        expect(read_png(paths[side]).shape == (500, 1800, 3),
+               f"{os.path.basename(paths[side])} reads back at 1800x500")
+    same = printed_digits(runs["card"]) == printed_digits(runs["cpu"])
+    with open(paths["card"], "rb") as fa, open(paths["cpu"], "rb") as fb:
+        equal = fa.read() == fb.read()
+    hold_plot_pair(equal, same, max(
+        max(rel_err(a["K"], b["K"]), rel_err(a["rms"], b["rms"]),
+            rel_err(a["per_view_errors"], b["per_view_errors"]))
+        for a, b in zip(runs["card"], runs["cpu"])),
+        f"the intrinsics plot of {[r['label'] for r in runs['card']]}")
+    rep["intrinsics"] = {"runs": [r["label"] for r in runs["card"]],
+                         "byte_equal": equal, "digits_agree": same}
+
+    # -- the mesh snapshot --------------------------------------------------
+    imgs, ms = {}, {}
+    for side, d in (("card", dev), ("cpu", cpu)):
+        t_d = torch.from_numpy(np.ascontiguousarray(tris)).to(d)
+        imgs[side] = reports.render_mesh_snapshot(t_d, device=d)
+        reps = []
+        for _ in range(3):
+            _, s = timed_s(lambda: reports.render_mesh_snapshot(
+                t_d, device=d), torch, d)
+            reps.append(s * 1e3)
+        ms[side] = float(np.median(reps))
+    expect(torch.equal(imgs["card"].cpu(), imgs["cpu"]),
+           f"the mesh snapshot of {len(tris)} triangles on {dev.type} "
+           "bit-equal to the CPU's (1000x1000)")
+    path = os.path.join(out_dir, "marching_cubes.png")
+    _, s = timed_s(lambda: reports.plot_mesh_snapshot(tris, path, device=dev),
+                   torch, dev)
+    back = read_png(path)
+    expect(back.shape == (1000, 1000, 3)
+           and np.array_equal(back, imgs["cpu"].numpy()),
+           f"{os.path.basename(path)} reads back at 1000x1000, equal to the "
+           "rendered image")
+    back_i = back.astype(np.int32)
+    blue = int((back_i[..., 2] > back_i[..., 0] + 60).sum())
+    rep["mesh"] = {"triangles": len(tris), "render_ms": ms,
+                   "plot_ms": s * 1e3, "covered_px": blue}
+    print(f"  figures ms: mask grid {rep['mask_grid_ms']:.1f}, intrinsics "
+          f"{rep['intrinsics_ms']['card']:.1f} (runs "
+          f"{rep['intrinsics']['runs']}, byte-equal {equal}), mesh plot "
+          f"{s * 1e3:.1f}; the rasteriser on {len(tris)} triangles "
+          f"{ms['card']:.1f} ms ({dev.type}), {ms['cpu']:.1f} ms (CPU), "
+          f"{blue} px covered")
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
 
 
 def run(device, image_hw=(486, 644), grid=None, focal=490.0,
@@ -4171,7 +4508,9 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     (background, video) frames per camera at ``cli_grid``³, with
     ``cli_nf`` (``--offline`` frames per launch, ``carve --batched``
     frames, frames of the CPU side), its calibration on the extrinsics'
-    scene; returns the per-kernel report."""
+    scene, and the manual corner session and the
+    reports on what phases 16, 19 and 20 hand over; returns the
+    per-kernel report."""
     import torch
 
     from vbr_tpu_torch.models.visual_hull import VisualHull, _full_step
@@ -4628,8 +4967,10 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     print(f"[16] the surface path: process_frame_surface{SURFACE_PAIR}, "
           f"capacity {SURFACE_CAPACITY}", flush=True)
     t0 = time.perf_counter()
+    kept = {}  # what phases 16, 19 and 20 hand to phase 24
     surface = surface_phase(torch, dev, kernels, flush, model, model_cpu,
-                            frame0, occ_c, col_c, seq, rig_models, step_ms)
+                            frame0, occ_c, col_c, seq, rig_models, step_ms,
+                            keep=kept)
     print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
 
     # -- [17] the thin-link viewer stream ---------------------------------
@@ -4656,7 +4997,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
           f"cameras' poses: detect_chessboard, calibrate_camera, "
           f"calibrate_video_photometric ({calib_iters} steps)", flush=True)
     calibration = calibration_phase(torch, dev, calib_hw, calib_views,
-                                    calib_iters)
+                                    calib_iters, keep=kept)
     print(f"  phase 19 in {calibration['seconds']:.1f} s")
 
     # -- [20] extrinsic calibration, MOG2 and KNN -------------------------
@@ -4668,7 +5009,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         torch, dev, bg_seqs, model_tr.bg_states, model_tr.mog_params[0],
         frame0, r.states, rig_models.models, rig_models.frames[0],
         mask_params or DEFAULT_MASK_PARAMS, ext_hw, ext_cams, ext_iters,
-        ext_bg_frames, ext_grid)
+        ext_bg_frames, ext_grid, keep=kept)
     print(f"  phase 20 in {extrinsics['seconds']:.1f} s")
 
     # -- [21] the sharded production step ----------------------------------
@@ -4704,6 +5045,23 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         ext_hw=ext_hw, ext_cams=ext_cams, ext_bg_frames=ext_bg_frames)
     print(f"  phase 23 in {cli_report['seconds_phase']:.1f} s")
     launches_cli = cli_report["launches_cli"]
+
+    # -- [24] the manual corner session and the reports ---------------------
+    expect(sorted(kept) == ["board", "discard", "masks", "rig_tris"]
+           and list(kept["masks"]) == list(REPORT_MODELS)
+           and len(kept["rig_tris"]) > 0,
+           "phases 16, 19 and 20 hand phase 24 cam1's boards, its discard "
+           f"views, the {'/'.join(REPORT_MODELS)} masks and the rig's mesh")
+    print(f"[24] the manual corner session and the reports on "
+          f"{dev.type}: {SESSION_VIEWS} board views of phase 19, the "
+          f"{'/'.join(REPORT_MODELS)} masks of phase 20, the "
+          f"intrinsics plot, the rig's mesh of phase 16 "
+          f"({len(kept['rig_tris'])} triangles)", flush=True)
+    reports_report = reports_phase(torch, dev, kept["board"],
+                                   kept["discard"], kept["masks"],
+                                   kept["rig_tris"])
+    print(f"  phase 24 in {reports_report['seconds']:.1f} s")
+    del kept
 
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
@@ -4765,6 +5123,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "sharded": sharded,
         "viewer_render": viewer_render,
         "cli": cli_report,
+        "reports": reports_report,
     }
 
 

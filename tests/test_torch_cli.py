@@ -493,14 +493,35 @@ def _calibrate(main, root, out, extra):
                        "--frame-interval", "1"] + extra)
 
 
-def test_cli_calibrate_intrinsics_corners(board_dir, tmp_path):
+def test_cli_calibrate_intrinsics_corners(board_dir, tmp_path, monkeypatch):
     """The corners route: the port converts to grey with
     ``ops.color.bgr_to_gray_u8`` (f32, rounded half to even) where
     ``vbr_tpu`` calls ``cv2.cvtColor`` (fixed point), which move a grey
     level by one here and there; the views found are the same and the
     intrinsics agree within 0.05 px (``tests/test_torch_photometric.py``'s
-    bound on K) and meet ``tests/test_cli.py``'s bounds on the truth.  The
+    bound on K) and meet ``tests/test_cli.py``'s bounds on the truth.  Both
+    write ``intrinsic_params_cam1.png`` at the same size, from the same
+    figure description (``tests/test_torch_reports.py``'s fields: text
+    and ticks equal, the values within the calibrations' bounds).  The
     annotated video is an MJPEG AVI of every sampled frame."""
+    import test_torch_reports as ttr
+    from vbr_tpu.pipelines import reports as jreports
+    from vbr_tpu_torch.pipelines import reports as treports
+
+    figs, save, describe = {}, jreports._savefig, \
+        treports.intrinsic_results_figure
+
+    def grab(fig, out_path):
+        save(fig, out_path)
+        figs["vbr_tpu"] = ttr.mpl_description(fig)
+
+    def record(runs):
+        fig = describe(runs)
+        figs["port"] = ttr.port_description(fig)
+        return fig
+
+    monkeypatch.setattr(jreports, "_savefig", grab)
+    monkeypatch.setattr(treports, "intrinsic_results_figure", record)
     root, K2 = board_dir
     jo, to = str(tmp_path / "j"), str(tmp_path / "t")
     with reference_readers():
@@ -512,8 +533,19 @@ def test_cli_calibrate_intrinsics_corners(board_dir, tmp_path):
     assert np.abs(Kt - Kj).max() <= 0.05
     assert abs(Kt[0, 0] - K2[0, 0]) / K2[0, 0] < 0.02
     assert abs(Kt[1, 2] - K2[1, 2]) < 6.0
-    assert any("skipped" in ln and "intrinsic_params_cam1.png" in ln
-               for ln in tl)
+    assert not any("skipped" in ln for ln in tl)
+    pngs = [os.path.join(d, "intrinsic_params_cam1.png") for d in (jo, to)]
+    assert ttr.png_size(pngs[0]) == ttr.png_size(pngs[1]) == (1800, 500)
+    for a, b in zip(figs["vbr_tpu"], figs["port"]):
+        for key in ("title", "xlabel", "xticks", "yticks", "yoffset",
+                    "legend"):
+            assert a[key] == b[key], key
+        assert [t[:2] for t in a["bars"]] == [t[:2] for t in b["bars"]]
+        np.testing.assert_allclose([t[2] for t in a["bars"]],
+                                   [t[2] for t in b["bars"]], atol=0.05)
+        for (x0, y0), (x1, y1) in zip(a["lines"], b["lines"]):
+            np.testing.assert_array_equal(np.asarray(x0, float), x1)
+            np.testing.assert_allclose(np.asarray(y0, float), y1, atol=0.05)
     board_props = tvio.video_properties(
         os.path.join(root, "cam1", "checkerboard.avi"))
     assert tvio.video_properties(os.path.join(

@@ -12,6 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "vbr_tpu_torch.apps.assignment_api",
     "vbr_tpu_torch.apps.cli",
+    "vbr_tpu_torch.apps.manual_corners",
     "vbr_tpu_torch.models.visual_hull",
     "vbr_tpu_torch.native",
     "vbr_tpu_torch.native.build",
@@ -38,6 +39,7 @@ MODULES = [
     "vbr_tpu_torch.pipelines.extrinsics_eval",
     "vbr_tpu_torch.pipelines.photometric_calibration",
     "vbr_tpu_torch.pipelines.reconstruction",
+    "vbr_tpu_torch.pipelines.reports",
     "vbr_tpu_torch.pipelines.validation",
     "vbr_tpu_torch.utils.artifacts",
     "vbr_tpu_torch.utils.config",
@@ -69,6 +71,8 @@ GL_FREE = [
     "vbr_tpu_torch.utils.video",
     "vbr_tpu_torch.native",
     "vbr_tpu_torch.apps.cli",
+    "vbr_tpu_torch.apps.manual_corners",
+    "vbr_tpu_torch.pipelines.reports",
     "chip_smoke",
 ]
 

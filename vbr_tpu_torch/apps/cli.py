@@ -14,10 +14,10 @@ defaults, printed lines and output files:
 Every command runs on the card unless ``--cpu`` is given.  Videos are read
 by ``utils/video.py`` (MJPEG or uncompressed AVI) and the annotated
 calibration videos and ``render --animate``'s orbit are written as MJPEG
-AVI files (``.avi`` where ``vbr_tpu`` writes ``.mp4``).  ``calibrate``'s
-matplotlib plot of the intrinsics (``intrinsic_params_cam{c}.png``) is not
-drawn; the command says so.  ``--preview`` has no window to show: it
-warns once (``utils/preview.py``).
+AVI files (``.avi`` where ``vbr_tpu`` writes ``.mp4``).  ``calibrate``
+draws its plot of the intrinsics (``intrinsic_params_cam{c}.png``) with
+``pipelines/reports.py``, without matplotlib.  ``--preview`` has no window
+to show: it warns once (``utils/preview.py``).
 """
 
 from __future__ import annotations
@@ -288,6 +288,9 @@ def cmd_calibrate(args):
                                            square, device=dev)
         print(f"cam{cam}: rms={res.rms:.3f}px fx={res.K[0,0]:.2f} "
               f"fy={res.K[1,1]:.2f} cx={res.K[0,2]:.2f} cy={res.K[1,2]:.2f}")
+        runs = [dict(label="all views", rms=res.rms,
+                     per_view_errors=res.per_view_errors, K=res.K,
+                     intrinsic_std=res.intrinsic_std)]
         if args.discard:
             kept, kept_idx, _, dropped = calibration.discard_bad_image_points(
                 image_points, (w, h), board, square,
@@ -296,9 +299,14 @@ def cmd_calibrate(args):
                 print(f"cam{cam}: discarded views {dropped}")
                 res = calibration.calibrate_camera(kept, (w, h), board,
                                                    square, device=dev)
+                runs.append(dict(label="after discard", rms=res.rms,
+                                 per_view_errors=res.per_view_errors,
+                                 K=res.K, intrinsic_std=res.intrinsic_std))
                 print(f"cam{cam}: rms after discard {res.rms:.3f}px")
-        print(f"cam{cam}: plot {os.path.join(args.out_dir, f'intrinsic_params_cam{cam}.png')} "
-              "skipped (the port draws no matplotlib figures)")
+        from vbr_tpu_torch.pipelines import reports
+
+        reports.plot_intrinsic_results(
+            runs, os.path.join(args.out_dir, f"intrinsic_params_cam{cam}.png"))
         out = os.path.join(args.out_dir, f"cam{cam}")
         xmlio.save_camera_config(
             out, res.K, res.dist, res.rvecs[0], res.tvecs[0],
