@@ -1,0 +1,11 @@
+"""Host ms per frame in the live step's ``finalize`` spans: post-
+morphology (``background.finalize_masks_batched``). The program's own
+spans (``vbr_tpu_torch.utils.profiling``) that are children of a ``step``
+span, summed over the untraced window and divided by its frames (host
+clock)."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.per_unit(run, ("finalize",), "step", 1e3)

@@ -75,10 +75,18 @@ class TestProfiling:
 
     def test_trace_writes_a_chrome_trace(self, tmp_path):
         with profiling.trace(str(tmp_path), name="t") as prof:
-            (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+            with profiling.span("step"):  # a CPU step, recorded
+                (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
         doc = json.loads((tmp_path / "t.json").read_text())
         assert doc["traceEvents"]
         assert any("mm" in e.key for e in prof.key_averages())
+        # the span lies on the profiler's clock, around the step's matmul
+        step = [e for e in doc["traceEvents"]
+                if e.get("cat") == "span" and e["name"] == "step"]
+        mm = [e for e in doc["traceEvents"] if e.get("name") == "aten::mm"]
+        assert len(step) == 1 and len(mm) == 1
+        s, m = step[0], mm[0]
+        assert s["ts"] <= m["ts"] and m["ts"] + m["dur"] <= s["ts"] + s["dur"]
 
 
 class TestConfig:

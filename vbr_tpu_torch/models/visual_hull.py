@@ -50,6 +50,13 @@ placed by ``utils.roi.MotionROITracker``); both are lossy, and
 ``(data, cam, grid)`` mesh of ranks (``parallel.pallas_sharded``), one
 shard on each rank's device, with a superblock placement that can be
 re-balanced; every rank gets numpy blocked outputs of the whole batch.
+
+The host records its own spans and counters (``utils.profiling``, which
+lists them): the step functions' stages (``masks``, ``cleanup``,
+``finalize``, ``carve``) wherever they run, each upload, each exact redo
+(``redo`` and the ``redos`` counter), the live step whole (``step``) and
+its wait for the overflow bits, and the offline path's call, chunks,
+downloads, copies and colour gathers.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ from vbr_tpu_torch.ops.gmm import MOGState
 from vbr_tpu_torch.parallel import pallas_sharded
 from vbr_tpu_torch.parallel.carve_sharded import axis_size
 from vbr_tpu_torch.pipelines import background, reconstruction
-from vbr_tpu_torch.utils import artifacts
+from vbr_tpu_torch.utils import artifacts, profiling
 from vbr_tpu_torch.utils.config import (
     DEFAULT_MASK_PARAMS,
     CameraParams,
@@ -80,6 +87,7 @@ from vbr_tpu_torch.utils.config import (
     RigConfig,
 )
 from vbr_tpu_torch.utils.device import resolve_device
+from vbr_tpu_torch.utils.profiling import span
 from vbr_tpu_torch.utils.roi import MotionROITracker
 
 _UNBUILT = object()  # blocked tables not asked for yet
@@ -137,12 +145,13 @@ class VisualHull:
         """u8 frames on the model's device.  A host array goes to the card
         through pinned memory, asynchronously: the host does not wait for
         the copy, and the pinned buffer is kept until it has landed."""
-        if isinstance(frames, torch.Tensor):
-            return frames.to(self.device, torch.uint8)
-        host = torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        with span("upload"):
+            if isinstance(frames, torch.Tensor):
+                return frames.to(self.device, torch.uint8)
+            host = torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
+            if self.device.type != "cuda":
+                return host
+            return host.pin_memory().to(self.device, non_blocking=True)
 
     def _ensure_fast_state(self):
         if self._stacked_fz is None:
@@ -260,6 +269,7 @@ class VisualHull:
         if ovf.any():
             raw_h = raw.cpu().numpy()
             for c in np.flatnonzero(ovf):
+                profiling.count("host_cleanups")
                 p = self.mask_params[c]
                 cleaned_c = ccl.clean_mask_host(
                     raw_h[c], p.figure_threshold, p.inner_threshold)
@@ -290,10 +300,19 @@ class VisualHull:
 
     def _redo(self, frames_d, layout):
         """Exact redo of an overflowed frame via the host cleanup."""
-        return carve_blocked.carve_blocked(
-            self.masks(frames_d), frames_d[self.rig.color_camera], self._btab,
-            views_threshold=self.rig.views_threshold, layout=layout,
-        )
+        with span("redo"):
+            profiling.count("redos")
+            return carve_blocked.carve_blocked(
+                self.masks(frames_d), frames_d[self.rig.color_camera],
+                self._btab, views_threshold=self.rig.views_threshold,
+                layout=layout,
+            )
+
+    def _redo_tables(self, frames_d):
+        """Exact redo of an overflowed frame on the plain table path."""
+        with span("redo"):
+            profiling.count("redos")
+            return self.process_frame(frames_d)
 
     def process_frame_fast(self, frames, layout: str = "canonical",
                            carve_kernel: str = "auto"):
@@ -305,15 +324,19 @@ class VisualHull:
         (the f64 table carve after the same mask stages) and returns
         canonical order whatever ``layout``; ``"auto"`` takes the blocked
         carve where the grid has blocked tables and the table step where it
-        has not (dims not divisible by 8·sup)."""
-        carve_kernel = self._carve_kernel(carve_kernel)
-        frames_d = self._frames(frames)
-        occ, col, ovf = self._step(frames_d, carve_kernel, layout)
-        if bool(ovf.any()):  # exact redo through the host cleanup
-            if carve_kernel == "tables":
-                return self.process_frame(frames_d)
-            return self._redo(frames_d, layout)
-        return occ, col
+        has not (dims not divisible by 8·sup).  Recorded as a ``step``
+        span (``utils.profiling``)."""
+        with span("step"):
+            carve_kernel = self._carve_kernel(carve_kernel)
+            frames_d = self._frames(frames)
+            occ, col, ovf = self._step(frames_d, carve_kernel, layout)
+            with span("overflow_wait"):
+                overflowed = bool(ovf.any())
+            if overflowed:  # exact redo through the host cleanup
+                if carve_kernel == "tables":
+                    return self._redo_tables(frames_d)
+                return self._redo(frames_d, layout)
+            return occ, col
 
     def _carve_kernel(self, carve_kernel):
         """``carve_kernel`` of :meth:`process_frame_fast` with ``"auto"``
@@ -582,40 +605,48 @@ class VisualHull:
         bool canonical occupancy and ``colors`` a per-frame list of
         ``(idx (M_f,) i64, col (M_f, 3) u8 BGR)``, or None with
         ``with_colors=False``; all numpy.  Needs grid dims divisible by 8·sup
-        (``ValueError`` otherwise)."""
-        self._ensure_fast_state()
-        self._blocked_tables_for("process_frames_offline")
-        frames = np.asarray(frames)
-        F = frames.shape[0]
-        NF = int(frames_per_launch)
-        pad = (-F) % NF
-        frames_p = (np.concatenate([frames, np.repeat(frames[-1:], pad,
-                                                      axis=0)])
-                    if pad else frames)
-        occ_chunks, ovf_chunks = [], []
-        for s in range(0, F + pad, NF):
-            occ_c, ovf_c = _full_step_frames(
-                self._stacked_fz, self._frames(frames_p[s:s + NF]),
-                self._btab, mask_params=self.mask_params,
-                use_hsv=self.mog_params[0].use_hsv,
-                fig_thresholds=self._fig_thresholds,
-                inner_thresholds=self._inner_thresholds,
-                views_threshold=self.rig.views_threshold,
-            )
-            occ_chunks.append(occ_c.cpu().numpy())
-            ovf_chunks.append(ovf_c.cpu().numpy())
-        occ = np.concatenate(occ_chunks)[:F]
-        ovf = np.concatenate(ovf_chunks)[:F]
-        for f in np.flatnonzero(ovf.any(axis=1)):  # exact redo, rare
-            occ[f] = self.process_frame(frames[f])[0].cpu().numpy()
-        if not with_colors:
-            return occ, None
-        lin_idx = self.tables.lin_idx.cpu().numpy()
-        cc = self.rig.color_camera
-        colors = [carve_blocked.frame_colors_host(occ[f], frames[f][cc],
-                                                  lin_idx, color_camera=cc)
-                  for f in range(F)]
-        return occ, colors
+        (``ValueError`` otherwise).  Recorded as an ``offline`` span
+        (``utils.profiling``)."""
+        with span("offline"):
+            self._ensure_fast_state()
+            self._blocked_tables_for("process_frames_offline")
+            frames = np.asarray(frames)
+            F = frames.shape[0]
+            NF = int(frames_per_launch)
+            pad = (-F) % NF
+            frames_p = frames
+            if pad:
+                with span("pad"):
+                    frames_p = np.concatenate(
+                        [frames, np.repeat(frames[-1:], pad, axis=0)])
+            occ_chunks, ovf_chunks = [], []
+            for s in range(0, F + pad, NF):
+                with span("chunk"):
+                    occ_c, ovf_c = _full_step_frames(
+                        self._stacked_fz, self._frames(frames_p[s:s + NF]),
+                        self._btab, mask_params=self.mask_params,
+                        use_hsv=self.mog_params[0].use_hsv,
+                        fig_thresholds=self._fig_thresholds,
+                        inner_thresholds=self._inner_thresholds,
+                        views_threshold=self.rig.views_threshold,
+                    )
+                    with span("download"):
+                        occ_chunks.append(occ_c.cpu().numpy())
+                        ovf_chunks.append(ovf_c.cpu().numpy())
+            with span("concat"):
+                occ = np.concatenate(occ_chunks)[:F]
+                ovf = np.concatenate(ovf_chunks)[:F]
+            for f in np.flatnonzero(ovf.any(axis=1)):  # exact redo, rare
+                occ[f] = self._redo_tables(frames[f])[0].cpu().numpy()
+            if not with_colors:
+                return occ, None
+            with span("colors"):
+                lin_idx = self.tables.lin_idx.cpu().numpy()
+                cc = self.rig.color_camera
+                colors = [carve_blocked.frame_colors_host(
+                    occ[f], frames[f][cc], lin_idx, color_camera=cc)
+                    for f in range(F)]
+            return occ, colors
 
     # -- surface ------------------------------------------------------------
 
@@ -638,7 +669,7 @@ class VisualHull:
         with ``extract_mesh`` (the config grid on its device, the emission
         on the host)."""
         if recarve:
-            occ, col = self.process_frame(frames_d)
+            occ, col = self._redo_tables(frames_d)
         origin, spacing = self._world_frame()
         tris, _ = mc.extract_mesh(occ.reshape(self.grid.shape), origin=origin,
                                   spacing=spacing, algorithm=algorithm,
@@ -1010,17 +1041,21 @@ def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
     ``layout="packed"`` the viewer wire (``carve_blocked.encode_wire``
     of the blocked outputs, its overflow word set by a component-table or
     a wire overflow)."""
-    raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
-                          use_hsv=use_hsv, ingest=ingest,
-                          roi_offsets=roi_offsets)
-    cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
-                                           inner_thresholds)
-    masks = background.finalize_masks_batched(cleaned, mask_params)
-    occ, col = carve_blocked.carve_blocked(
-        masks, frames[btab.color_camera], btab,
-        views_threshold=views_threshold,
-        layout="blocked" if layout == "packed" else layout,
-    )
+    with span("masks"):
+        raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
+                              use_hsv=use_hsv, ingest=ingest,
+                              roi_offsets=roi_offsets)
+    with span("cleanup"):
+        cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
+                                               inner_thresholds)
+    with span("finalize"):
+        masks = background.finalize_masks_batched(cleaned, mask_params)
+    with span("carve"):
+        occ, col = carve_blocked.carve_blocked(
+            masks, frames[btab.color_camera], btab,
+            views_threshold=views_threshold,
+            layout="blocked" if layout == "packed" else layout,
+        )
     if layout == "packed":
         packed_k, ids, n_blocks, n_vox, cols, bovf = (
             carve_blocked.pack_blocked_outputs(occ, col))
@@ -1036,15 +1071,19 @@ def _full_step_tables(stacked_fz, frames, tables, *, mask_params, use_hsv,
     :func:`_full_step` (the same ``ingest`` formats), then the f64 table
     carve.  Returns (occ (N,) bool, colors (N, 3) u8, overflow (C,) bool),
     canonical order."""
-    raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
-                          use_hsv=use_hsv, ingest=ingest,
-                          roi_offsets=roi_offsets)
-    cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
-                                           inner_thresholds)
-    masks = background.finalize_masks_batched(cleaned, mask_params)
-    occ, col = carve_ops.carve_from_tables(
-        masks, frames, tables.valid, tables.lin_idx,
-        views_threshold=views_threshold, color_camera=color_camera)
+    with span("masks"):
+        raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
+                              use_hsv=use_hsv, ingest=ingest,
+                              roi_offsets=roi_offsets)
+    with span("cleanup"):
+        cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
+                                               inner_thresholds)
+    with span("finalize"):
+        masks = background.finalize_masks_batched(cleaned, mask_params)
+    with span("carve"):
+        occ, col = carve_ops.carve_from_tables(
+            masks, frames, tables.valid, tables.lin_idx,
+            views_threshold=views_threshold, color_camera=color_camera)
     return occ, col, ovf
 
 
@@ -1055,17 +1094,22 @@ def _full_step_frames(stacked_fz, frames, btab, *, mask_params, use_hsv,
     kernel K2, for all NF·C images), then the chunk's carve (kernel K4).
     Returns (occ (NF, N) bool canonical, overflow (NF, C) bool)."""
     NF, C, H, W = frames.shape[:4]
-    raw = torch.stack([
-        background.raw_masks_batched_fz(stacked_fz, fr, mask_params, use_hsv)
-        for fr in frames])
-    cleaned, ovf = ccl.clean_masks_batched(
-        raw.reshape(NF * C, H, W), fig_thresholds * NF,
-        inner_thresholds * NF)
-    masks = torch.stack([
-        background.finalize_masks_batched(m, mask_params)
-        for m in cleaned.reshape(NF, C, H, W)])
-    occ = carve_blocked._carve_frames_device(
-        masks, btab, views_threshold=views_threshold)
+    with span("masks"):
+        raw = torch.stack([
+            background.raw_masks_batched_fz(stacked_fz, fr, mask_params,
+                                            use_hsv)
+            for fr in frames])
+    with span("cleanup"):
+        cleaned, ovf = ccl.clean_masks_batched(
+            raw.reshape(NF * C, H, W), fig_thresholds * NF,
+            inner_thresholds * NF)
+    with span("finalize"):
+        masks = torch.stack([
+            background.finalize_masks_batched(m, mask_params)
+            for m in cleaned.reshape(NF, C, H, W)])
+    with span("carve"):
+        occ = carve_blocked._carve_frames_device(
+            masks, btab, views_threshold=views_threshold)
     return occ, ovf.reshape(NF, C)
 
 

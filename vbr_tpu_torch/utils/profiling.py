@@ -1,28 +1,213 @@
-"""Observability: per-stage timing, device tracing and numeric checking.
+"""Observability: the recorder of host spans and counters, per-stage
+timing, device tracing and numeric checking.
 
-Counterpart of ``vbr_tpu/utils/profiling.py``:
+Counterpart of ``vbr_tpu/utils/profiling.py``, with the recorder beside it:
 
+  * :class:`span` and :func:`count` — the recorder.  A span is a named
+    interval of the host's ``time.perf_counter`` (the clock the benchmark
+    ties its device trace to) with the index of the enclosing span on the
+    same thread (its parent) and a request number, which a root span takes
+    and its children inherit; spans go into a preallocated ring of
+    ``RING_SIZE`` entries, the oldest overwritten first (``dropped``).
+    Counters are named totals.  :func:`spans`, :func:`counted` and
+    :func:`counters` read them back.  A span makes no CUDA call (no event,
+    no synchronise, no profiler range): it times the host's enqueue of the
+    work inside it and adds nothing to a device trace.  The module flag
+    ``enabled`` (default True) turns recording off;
   * :class:`StageTimer` — named stages timed by CUDA events on the current
-    stream for a CUDA device (each stage also an NVTX range), by the host
-    clock otherwise;
+    stream for a CUDA device, by the host clock otherwise; each stage is
+    also a recorder span;
   * :func:`device_sync` — wait for the device work behind a tensor;
   * :func:`trace` — a ``torch.profiler`` trace (CPU and, where there is a
-    card, CUDA activity) inside one NVTX range, written as a Chrome trace;
+    card, CUDA activity) written as a Chrome trace, with the recorder's
+    spans of its window on a track of their own;
   * :func:`checked` — raises ``FloatingPointError`` when a function returns
     a non-finite float, the port's counterpart of checkify's
     ``float_checks``.
+
+The program's spans and counters (``models/visual_hull.py``):
+
+    step           one ``VisualHull.process_frame_fast`` call (root)
+    offline        one ``VisualHull.process_frames_offline`` call (root)
+    upload         ``VisualHull._frames``: pinning and the queued copy
+    masks          HSV, frozen MOG apply, pre-morphology
+    cleanup        ``ccl.clean_masks_batched`` (kernel K2, run tables)
+    finalize       post-morphology
+    carve          block activity and kernel K1 or K4, or the table carve
+    overflow_wait  the live step's wait for the cleanup's overflow bits
+    redo           a frame redone exactly (host cleanup or table path)
+    pad            the offline path's padding of the last chunk
+    chunk          one chunk of the offline path, its downloads included
+    download       a chunk's occupancy and overflow bits to the host
+    concat         the offline path's joining of the chunks
+    colors         the offline path's host colour gathers
+
+    redos          frames redone exactly (one per ``redo`` span)
+    host_cleanups  cameras cleaned by ``ccl.clean_mask_host``
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
+import json
+import math
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, List
+from collections import defaultdict, deque
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
+
+RING_SIZE = 65536  # spans (and counter increments) the recorder keeps
+enabled = True  # False: spans and counts record nothing
+
+
+class Span(NamedTuple):
+    """One recorded span; times in s of ``time.perf_counter``."""
+
+    index: int  # its number among every span the recorder opened
+    name: str
+    start: float
+    end: float
+    parent: int  # index of the enclosing span on the same thread, or -1
+    request: int  # taken by a root span, inherited by its children
+    thread: int  # ``threading.get_ident()`` of the thread that opened it
+
+
+class Recorder:
+    """A fixed ring of ``size`` spans, each written when it closes, and a
+    set of named counters (each increment also kept, with its time, in a
+    ring of ``size``).  :class:`span` opens and closes the spans."""
+
+    def __init__(self, size: int = RING_SIZE):
+        self.size = int(size)
+        # (index, name, start, end, parent, request, thread) per slot
+        self._ring = [None] * self.size
+        self._next = itertools.count()  # next() is atomic under the GIL
+        self._requests = itertools.count()
+        self._local = threading.local()  # .stack: the thread's open spans
+        self.dropped = 0  # spans overwritten by newer ones
+        self._dropped_start = -math.inf  # the latest start among them
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
+        self._count_log = deque(maxlen=self.size)
+        self._dropped_count_t = None  # time of the latest increment dropped
+
+    def _keep(self, entry) -> None:
+        """Put a closed span into its slot, unless a newer span holds it."""
+        s = entry[0] % self.size
+        old = self._ring[s]
+        if old is not None and old[0] > entry[0]:
+            old, entry = entry, old
+        self._ring[s] = entry
+        if old is not None:
+            self.dropped += 1
+            self._dropped_start = max(self._dropped_start, old[2])
+
+    def spans(self, t0: float = -math.inf,
+              t1: float = math.inf) -> Tuple[List[Span], bool]:
+        """The kept spans, closed, that start in [t0, t1], by index, and
+        whether the ring has overwritten spans that started at or after
+        ``t0``."""
+        out = sorted(Span(*e) for e in list(self._ring)
+                     if e is not None and t0 <= e[2] <= t1)
+        return out, self.dropped > 0 and self._dropped_start >= t0
+
+    def count(self, name: str, n: int = 1) -> None:
+        t = time.perf_counter()
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+            if len(self._count_log) == self.size:
+                self._dropped_count_t = self._count_log[0][0]
+            self._count_log.append((t, name, n))
+
+    def counters(self) -> Dict[str, int]:
+        """Every counter's total."""
+        with self._lock:
+            return dict(self._counts)
+
+    def counted(self, t0: float = -math.inf,
+                t1: float = math.inf) -> Tuple[Dict[str, int], bool]:
+        """Each counter's increments made in [t0, t1], and whether the ring
+        of increments has overwritten any made at or after ``t0``."""
+        with self._lock:
+            log = list(self._count_log)
+            overwritten = (self._dropped_count_t is not None
+                           and self._dropped_count_t >= t0)
+        out: Dict[str, int] = {}
+        for t, name, n in log:
+            if t0 <= t <= t1:
+                out[name] = out.get(name, 0) + n
+        return out, overwritten
+
+
+RECORDER = Recorder()
+
+
+class span:
+    """``with span("name"):`` records the block as a span of ``recorder``
+    (the module's :data:`RECORDER` by default) while :data:`enabled`: its
+    index, parent and request are fixed when it opens, and it enters the
+    ring when it closes."""
+
+    __slots__ = ("name", "recorder", "_open")
+
+    def __init__(self, name: str, recorder: Recorder = None):
+        self.name = name
+        self.recorder = RECORDER if recorder is None else recorder
+
+    def __enter__(self):
+        if not enabled:
+            self._open = None
+            return self
+        rec = self.recorder
+        i = next(rec._next)
+        try:
+            stack = rec._local.stack
+        except AttributeError:
+            stack = rec._local.stack = []
+            rec._local.thread = threading.get_ident()
+        if stack:
+            parent, request = stack[-1][0], stack[-1][2]
+        else:
+            parent, request = -1, next(rec._requests)
+        self._open = (i, parent, request, time.perf_counter())
+        stack.append(self._open)
+        return self
+
+    def __exit__(self, *exc):
+        o = self._open
+        if o is not None:
+            t = time.perf_counter()
+            rec = self.recorder
+            rec._local.stack.pop()
+            rec._keep((o[0], self.name, o[3], t, o[1], o[2],
+                       rec._local.thread))
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while :data:`enabled`."""
+    if enabled:
+        RECORDER.count(name, n)
+
+
+def spans(t0: float = -math.inf, t1: float = math.inf):
+    """:meth:`Recorder.spans` of the module's recorder."""
+    return RECORDER.spans(t0, t1)
+
+
+def counted(t0: float = -math.inf, t1: float = math.inf):
+    """:meth:`Recorder.counted` of the module's recorder."""
+    return RECORDER.counted(t0, t1)
+
+
+def counters() -> Dict[str, int]:
+    """:meth:`Recorder.counters` of the module's recorder."""
+    return RECORDER.counters()
 
 
 def _device_of(x):
@@ -54,7 +239,8 @@ def device_sync(x) -> None:
 
 
 class StageTimer:
-    """Accumulating named-stage timer.
+    """Accumulating named-stage timer; each stage is also a recorder
+    :class:`span` named after it.
 
     >>> timer = StageTimer()
     >>> with timer("masks", device=frames):
@@ -76,22 +262,21 @@ class StageTimer:
     def __call__(self, name: str, device=None):
         dev = _device_of(device) if device is not None else None
         if dev is not None and dev.type == "cuda":
-            with torch.cuda.device(dev):
+            with torch.cuda.device(dev), span(name):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.nvtx.range_push(name)
                 start.record()
                 try:
                     yield
                 finally:
                     end.record()
-                    torch.cuda.nvtx.range_pop()
                     self._events[name].append((start, end))
                     self.counts[name] += 1
             return
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self._host[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -120,25 +305,72 @@ class StageTimer:
 @contextlib.contextmanager
 def trace(log_dir: str = "artifacts/trace", name: str = "trace"):
     """``torch.profiler`` over the block (CUDA activity too where a card is
-    present), inside an NVTX range ``name``; the Chrome trace goes to
-    ``log_dir/<name>.json`` (open it in Perfetto or chrome://tracing).
-    Yields the profiler, whose ``key_averages()`` sum the kernels."""
+    present); the Chrome trace goes to ``log_dir/<name>.json`` (open it in
+    Perfetto or chrome://tracing) with the recorder's spans that start in
+    the block on a track of their own.  Yields the profiler, whose
+    ``key_averages()`` sum the kernels.
+
+    The clocks are tied by an anchor: a one-element fill launched at a
+    known ``time.perf_counter`` is the second operation the profiler
+    records (after another fill, which takes the first operation's delay),
+    and each span is placed at its offset from the fill's host start."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
+    marker = torch.zeros(1, device="cuda" if cuda else "cpu")
+    if cuda:
+        torch.cuda.synchronize()
     with profile(activities=activities) as prof:
-        if cuda:
-            torch.cuda.nvtx.range_push(name)
+        marker.fill_(0.0)  # the profiler's first operation records late
+        anchor = time.perf_counter()
+        marker.fill_(1.0)
+        t0 = time.perf_counter()
         try:
             yield prof
         finally:
             if cuda:
                 torch.cuda.synchronize()
-                torch.cuda.nvtx.range_pop()
+            t1 = time.perf_counter()
     os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
+    path = os.path.join(log_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, anchor, spans(t0, t1)[0])
+
+
+SPAN_TID = 900_000_000  # the spans' track ids in a Chrome trace, upward
+
+
+def _add_spans(path: str, anchor: float, recorded: List[Span]) -> None:
+    """Write ``recorded`` into the Chrome trace at ``path``, each on the
+    trace's clock: the anchor fill's host start (the second
+    ``aten::fill_`` of the trace) plus the span's offset from ``anchor``
+    (s, ``time.perf_counter``).  One track per thread."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    fills = sorted(e["ts"] for e in events
+                   if e.get("name") == "aten::fill_" and e.get("ph") == "X")
+    if len(fills) < 2:
+        raise RuntimeError(f"no anchor fill in the trace {path}")
+    base = float(fills[1])
+    pid = os.getpid()
+    tracks = {}
+    for s in recorded:
+        if s.thread not in tracks:
+            tracks[s.thread] = tid = SPAN_TID + len(tracks)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {
+                               "name": f"spans, thread {s.thread}"}})
+        events.append({
+            "ph": "X", "cat": "span", "name": s.name, "pid": pid,
+            "tid": tracks[s.thread], "ts": base + (s.start - anchor) * 1e6,
+            "dur": (s.end - s.start) * 1e6,
+            "args": {"index": s.index, "parent": s.parent,
+                     "request": s.request}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def checked(fn):
