@@ -4900,7 +4900,7 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
            "per-frame occupancy and colours at occupied voxels equal to "
            f"process_frame_fast; occupied voxels {n_occ_off.tolist()}")
     print(f"  offline {offline_ms:.3f} ms/frame (host clock, upload and "
-          f"host colours included) beside stream {stream_ms:.3f} ms/frame")
+          f"colours included) beside stream {stream_ms:.3f} ms/frame")
     offline_profile = profile_step(
         torch, lambda: model_tr.process_frames_offline(
             seq_np, frames_per_launch=OFFLINE_NF),

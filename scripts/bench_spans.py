@@ -17,8 +17,10 @@ the CPU).  Each prints one JSON line.
 * ``cell``: one traced run of a benchmark cell (``benchmark/run.py``'s
   ``execute``); then, for each of its windows, the recorder's spans summed
   by parent and name per frame (live) or per call (offline) beside the
-  harness's host time per call, and the program's ``redos`` counter over
-  the window beside the harness's count of redos.
+  harness's host time per call, the program's ``redos`` counter over the
+  window beside the harness's count of redos, and its ``color_voxels``
+  counter beside the voxels of the returned colours of the frames that
+  were not redone (offline).
 * ``onoff``: one model of the live cell, ``--pairs`` windows of its
   traffic in which the recorder is on for every other frame; per window
   the host ms per call of the frames with it on and off, and the change.
@@ -83,10 +85,10 @@ def _bounds(record):
     return float(c[0, 0]), float(c[-1, 1]), len(c)
 
 
-def split(record, harness_redos) -> dict:
+def split(record, harness) -> dict:
     """The recorder's view of one window: ms per frame or call of each
-    (parent, name) of span, and its ``redos`` counter beside the
-    harness's."""
+    (parent, name) of span, and its ``redos`` and ``color_voxels``
+    counters beside the harness's counts over the window."""
     t0, t1, units = _bounds(record)
     got, overwritten = profiling.spans(t0, t1)
     counts, lost = profiling.counted(t0, t1)
@@ -108,7 +110,11 @@ def split(record, harness_redos) -> dict:
                                        if ms.get(f"-/{root}") else None),
             "ms_per_unit": dict(sorted(ms.items())),
             "redos_program": counts.get("redos", 0),
-            "redos_harness": harness_redos,
+            "redos_harness": harness.get("redos"),
+            "color_voxels_program": counts.get("color_voxels", 0),
+            "color_voxels_returned": (
+                harness["returned_voxels"] - harness["redone_voxels"]
+                if "redos" in harness else None),
             "host_cleanups": counts.get("host_cleanups", 0)}
 
 
@@ -125,14 +131,33 @@ def cell(args) -> dict:
     harness, windows = [], []
 
     def counted(model):
-        harness.append(count_redos(model))
-        return harness[-1]
+        """The harness's redo count, and the voxels of the colours the
+        offline path returns and of the frames it redoes."""
+        tally = count_redos(model)
+        tally.update(returned_voxels=0, redone_voxels=0)
+        offline, plain = model.process_frames_offline, model.process_frame
+
+        def offline_counted(*a, **k):
+            occ, colors = offline(*a, **k)
+            tally["returned_voxels"] += sum(len(i) for i, _ in colors or [])
+            return occ, colors
+
+        def plain_counted(*a, **k):
+            occ, col = plain(*a, **k)
+            tally["redone_voxels"] += int(occ.sum())
+            return occ, col
+
+        model.process_frames_offline = offline_counted
+        model.process_frame = plain_counted
+        harness.append(tally)
+        return tally
 
     def window(*a, **k):
-        before = harness[-1]["redos"] if harness else 0
+        before = dict(harness[-1]) if harness else {}
         record, kept = inner(*a, **k)
-        windows.append((record, harness[-1]["redos"] - before
-                        if harness else None))
+        windows.append((record, {n: v - before[n]
+                                 for n, v in harness[-1].items()}
+                        if harness else {}))
         return record, kept
 
     loop.window, program.count_redos = window, counted
@@ -145,8 +170,8 @@ def cell(args) -> dict:
            "correct": result["correct"], "load": result["load"],
            "device": result["device"],
            "metrics": {k: v["value"] for k, v in result["metrics"].items()}}
-    for name, (record, redos) in zip(("untraced", "traced"), windows):
-        out[name] = split(record, redos)
+    for name, (record, tally) in zip(("untraced", "traced"), windows):
+        out[name] = split(record, tally)
     return out
 
 

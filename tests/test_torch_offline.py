@@ -11,6 +11,7 @@ tables against the exact per-frame redo.
 
 import dataclasses
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +30,7 @@ from vbr_tpu_torch.ops import carve as tcarve
 from vbr_tpu_torch.ops import carve_blocked as tcb
 from vbr_tpu_torch.utils import artifacts as tart
 from vbr_tpu_torch.utils import config as tconfig
+from vbr_tpu_torch.utils import profiling
 from vbr_tpu_torch.utils import synthetic as tsyn
 
 
@@ -380,6 +382,12 @@ def test_plain_matches_pallas_on_the_card_check_inputs(
 # -- the whole offline path, on the rig of tests/test_offline_frames.py ----
 
 
+def _rig_background():
+    """(C, 6, H, W, 3) u8 training frames of the offline rig."""
+    rng = np.random.default_rng(7)
+    return rng.integers(0, 200, size=(C, 6, H, W, 3), dtype=np.uint8)
+
+
 @pytest.fixture(scope="module")
 def models():
     mp = tuple(dataclasses.replace(p, figure_threshold=40.0,
@@ -389,8 +397,7 @@ def models():
                         jconfig.GridConfig(**GRID),
                         jconfig.RigConfig(image_height=H, image_width=W),
                         mask_params=mp)
-    rng = np.random.default_rng(7)
-    bg = rng.integers(0, 200, size=(C, 6, H, W, 3), dtype=np.uint8)
+    bg = _rig_background()
     mj.bg_states = [jbackground.train_background_model(
         bg[c], jconfig.MOGParams(history=6)) for c in range(C)]
     mj.mog_params = [jconfig.MOGParams(history=6)] * C
@@ -470,3 +477,68 @@ def test_offline_rejects_non_divisible_grid(models):
     m2.bg_states, m2.mog_params = mt.bg_states, mt.mog_params
     with pytest.raises(ValueError, match="8-divisible"):
         m2.process_frames_offline(np.zeros((1, C, H, W, 3), np.uint8))
+
+
+
+def _offline_colors_case(case, frames):
+    """(video, frames_per_launch, redone frames) of a colour case on the
+    rig's F = 3 frames; the background frame carves no voxel."""
+    empty = _rig_background()[:, 0]
+    burst = frames[1].copy()
+    burst[:, ::2, ::2] = 255
+    if case == "padded":
+        return frames, 2, set()
+    if case == "redone":
+        return np.stack([frames[0], burst, frames[2]]), 2, {1}
+    if case == "empty_frame":
+        return np.stack([frames[0], empty, frames[2]]), 2, set()
+    # all at once: a padded last chunk holding a redone frame
+    return np.stack([frames[0], empty, frames[2], frames[1], burst]), 3, {4}
+
+
+@pytest.mark.parametrize("case", ["padded", "redone", "empty_frame",
+                                  "counter"])
+def test_offline_colors_equal_the_host_gather(models, case, monkeypatch):
+    """(exact) The device gather's colours, frame by frame, equal
+    ``frame_colors_host`` on the returned occupancy (i64 ascending idx,
+    (M, 3) u8 BGR): with the padded last chunk's rows dropped, a redone
+    frame's colours from its redo, and a frame with no occupied voxel.
+    ``color_voxels`` grows by the voxels of the frames not redone.  The
+    chunk's occupancy of an overflowed frame is made wrong (every voxel),
+    as the device result of such a frame may be, so that colours taken
+    from it would show."""
+    _, mt, frames = models
+    video, nf, redone = _offline_colors_case(case, frames)
+    step = tvh._full_step_frames
+
+    def overflowed_rows_wrong(*a, **k):
+        occ, ovf = step(*a, **k)
+        return occ | ovf.any(dim=1, keepdim=True), ovf
+
+    monkeypatch.setattr(tvh, "_full_step_frames", overflowed_rows_wrong)
+    assert len(video) % nf
+    t0 = time.perf_counter()
+    occ, colors = mt.process_frames_offline(video, frames_per_launch=nf)
+    counts, lost = profiling.counted(t0, time.perf_counter())
+    assert not lost and len(colors) == len(video) == len(occ)
+    lin_idx = mt.tables.lin_idx.numpy()
+    cc = mt.rig.color_camera
+    for f, (idx, col) in enumerate(colors):
+        want_idx, want_col = tcb.frame_colors_host(occ[f], video[f][cc],
+                                                   lin_idx, color_camera=cc)
+        assert idx.dtype == np.int64 and col.dtype == np.uint8
+        assert idx.shape == want_idx.shape and col.shape == (len(idx), 3)
+        assert (np.diff(idx) > 0).all()
+        np.testing.assert_array_equal(idx, want_idx)
+        np.testing.assert_array_equal(col, want_col)
+    sizes = [len(idx) for idx, _ in colors]
+    assert counts.get("redos", 0) == len(redone)
+    assert counts.get("color_voxels", 0) == sum(
+        n for f, n in enumerate(sizes) if f not in redone)
+    for f in redone:
+        np.testing.assert_array_equal(
+            occ[f], mt.process_frame(video[f])[0].numpy())
+    if case in ("empty_frame", "counter"):
+        assert sizes[1] == 0 and min(sizes[:1] + sizes[2:]) > 0
+    else:
+        assert min(sizes) > 0

@@ -239,17 +239,21 @@ def test_an_offline_call_records_its_chunks(rig):
                                        "redo", "colors"]
     for chunk in (s for s in got if s.name == "chunk"):
         assert _children(got, chunk) == ["upload", "masks", "cleanup",
-                                         "finalize", "carve", "download"]
+                                         "finalize", "carve", "download",
+                                         "colors"]
     assert {s.request for s in got} == {offline.request}
     assert counts["redos"] == 1 and counts["host_cleanups"] >= 1
+    assert counts["color_voxels"] > 0
 
 
 def test_an_offline_call_without_padding_has_no_pad_span(rig):
     model, frames, _ = rig
-    got, _ = _window(lambda: model.process_frames_offline(
+    got, counts = _window(lambda: model.process_frames_offline(
         frames[:2], frames_per_launch=2, with_colors=False))
     offline = next(s for s in got if s.name == "offline")
     assert _children(got, offline) == ["chunk", "concat"]
+    assert "colors" not in {s.name for s in got}
+    assert "color_voxels" not in counts
 
 
 def test_the_stream_records_the_step_stages_as_roots(rig):

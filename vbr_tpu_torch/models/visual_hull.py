@@ -600,13 +600,17 @@ class VisualHull:
         Per-frame occupancy equals :meth:`process_frame`; a frame that
         overflows a component table is redone exactly through it.
 
-        Colours are gathered on the host from the colour camera's frame at
-        occupied voxels only.  Returns ``(occ, colors)``: ``occ`` (F, N)
-        bool canonical occupancy and ``colors`` a per-frame list of
-        ``(idx (M_f,) i64, col (M_f, 3) u8 BGR)``, or None with
-        ``with_colors=False``; all numpy.  Needs grid dims divisible by 8·sup
-        (``ValueError`` otherwise).  Recorded as an ``offline`` span
-        (``utils.profiling``)."""
+        Colours are gathered on the device from the colour camera's frame
+        at occupied voxels only, chunk by chunk while the chunk's
+        occupancy and frames are resident
+        (``carve_blocked.chunk_colors_device``, counted as
+        ``color_voxels``); a redone frame takes them from its redo.
+        Returns ``(occ, colors)``: ``occ`` (F, N) bool canonical occupancy
+        and ``colors`` a per-frame list of ``(idx (M_f,) i64, col (M_f, 3)
+        u8 BGR)``, ``idx`` ascending, views into its chunk's download, or
+        None with ``with_colors=False``; all numpy.  Needs grid dims
+        divisible by 8·sup (``ValueError`` otherwise).  Recorded as an
+        ``offline`` span (``utils.profiling``)."""
         with span("offline"):
             self._ensure_fast_state()
             self._blocked_tables_for("process_frames_offline")
@@ -619,11 +623,14 @@ class VisualHull:
                 with span("pad"):
                     frames_p = np.concatenate(
                         [frames, np.repeat(frames[-1:], pad, axis=0)])
-            occ_chunks, ovf_chunks = [], []
+            cc = self.rig.color_camera
+            lin_idx = self.tables.lin_idx if with_colors else None
+            occ_chunks, ovf_chunks, color_chunks = [], [], []
             for s in range(0, F + pad, NF):
                 with span("chunk"):
+                    frames_d = self._frames(frames_p[s:s + NF])
                     occ_c, ovf_c = _full_step_frames(
-                        self._stacked_fz, self._frames(frames_p[s:s + NF]),
+                        self._stacked_fz, frames_d,
                         self._btab, mask_params=self.mask_params,
                         use_hsv=self.mog_params[0].use_hsv,
                         fig_thresholds=self._fig_thresholds,
@@ -633,19 +640,38 @@ class VisualHull:
                     with span("download"):
                         occ_chunks.append(occ_c.cpu().numpy())
                         ovf_chunks.append(ovf_c.cpu().numpy())
+                    if with_colors:
+                        with span("colors"):
+                            got, ready = _start_download(
+                                carve_blocked.chunk_colors_device(
+                                    occ_c, frames_d, lin_idx, cc))
+                            _wait(ready)
+                            counts, idx, col = (t.numpy() for t in got)
+                            kept = ((s + np.arange(NF) < F)
+                                    & ~ovf_chunks[-1].any(axis=1))
+                            profiling.count("color_voxels",
+                                            int(counts[kept].sum()))
+                            color_chunks.append((counts, idx, col))
             with span("concat"):
                 occ = np.concatenate(occ_chunks)[:F]
                 ovf = np.concatenate(ovf_chunks)[:F]
+            redone = {}
             for f in np.flatnonzero(ovf.any(axis=1)):  # exact redo, rare
-                occ[f] = self._redo_tables(frames[f])[0].cpu().numpy()
+                occ_r, col_r = self._redo_tables(frames[f])
+                occ[f] = occ_r.cpu().numpy()
+                redone[f] = (occ_r, col_r)
             if not with_colors:
                 return occ, None
             with span("colors"):
-                lin_idx = self.tables.lin_idx.cpu().numpy()
-                cc = self.rig.color_camera
-                colors = [carve_blocked.frame_colors_host(
-                    occ[f], frames[f][cc], lin_idx, color_camera=cc)
-                    for f in range(F)]
+                colors = []
+                for counts, idx, col in color_chunks:
+                    ends = np.cumsum(counts)
+                    for a, b in zip(ends - counts, ends):
+                        colors.append((idx[a:b], col[a:b]))
+                del colors[F:]
+                for f, (occ_r, col_r) in redone.items():
+                    vox = occ_r.nonzero().squeeze(1)
+                    colors[f] = (vox.cpu().numpy(), col_r[vox].cpu().numpy())
             return occ, colors
 
     # -- surface ------------------------------------------------------------

@@ -17,8 +17,9 @@ Counterpart of ``vbr_tpu/ops/carve_pallas.py``:
     blocked/canonical output handling of ``carve_blocked``;
   * the offline multi-frame carve — ``carve_frames_blocked``: kernel K4
     (``csrc/carve_frames.cu``) carves ``frames_per_launch`` frames per
-    launch, occupancy only, with colours gathered on the host
-    (``frame_colors_host``);
+    launch, occupancy only; ``chunk_colors_device`` gathers the colours
+    of a chunk's occupied voxels on the device, ``frame_colors_host`` one
+    frame's on the host;
   * host helpers for the blocked layout — ``canonicalize_host`` and
     ``compact_voxels_blocked``;
   * the packed viewer wire — ``pack_blocked_outputs`` and ``encode_wire``
@@ -672,9 +673,10 @@ def carve_frames_blocked(masks: torch.Tensor, tables: BlockTables, *,
     per-frame occupancy (F, N) bool, each frame equal to
     ``carve.carve_from_tables``.  ``frames_per_launch`` frames go through
     one launch; the last chunk is padded with all-background frames, whose
-    outputs are dropped.  Colours are not computed here: an offline
-    consumer holds the frames on the host and gathers the occupied voxels'
-    colours there (:func:`frame_colors_host`)."""
+    outputs are dropped.  Colours are not computed here: a chunked caller
+    that holds its frames on the device gathers the occupied voxels'
+    colours there (:func:`chunk_colors_device`), one that holds them on the
+    host gathers them frame by frame (:func:`frame_colors_host`)."""
     F = masks.shape[0]
     NF = int(frames_per_launch)
     pad = (-F) % NF
@@ -686,6 +688,25 @@ def carve_frames_blocked(masks: torch.Tensor, tables: BlockTables, *,
         for start in range(0, F + pad, NF)
     ]
     return torch.cat(occ_chunks)[:F]
+
+
+def chunk_colors_device(occ: torch.Tensor, frames: torch.Tensor,
+                        lin_idx: torch.Tensor, color_camera: int = 1):
+    """Colour gather at a chunk's occupied voxels on the chunk's device:
+    canonical ``occ`` (NF, N) bool, the chunk's frames (NF, C, H, W, 3) u8
+    and the table path's ``lin_idx`` (C, N) → (counts (NF,) i64, idx (M,)
+    i64, col (M, 3) u8 BGR), the M occupied voxels frame by frame in
+    ascending order: frame f's are ``idx[a:b]``, ``col[a:b]`` with ``b - a
+    = counts[f]``, each equal to :func:`frame_colors_host` on that frame.
+    One ``nonzero`` over the chunk, so one host sync on a card."""
+    NF, N = occ.shape
+    flat = occ.reshape(-1).nonzero().squeeze(1)
+    frame = flat // N
+    idx = flat - frame * N
+    H, W = frames.shape[2:4]
+    image = frames.select(1, color_camera).reshape(NF, H * W, 3)
+    col = image[frame, lin_idx[color_camera][idx].long()]
+    return occ.sum(dim=1), idx, col
 
 
 def frame_colors_host(occ: np.ndarray, image: np.ndarray,

@@ -40,10 +40,14 @@ The program's spans and counters (``models/visual_hull.py``):
     chunk          one chunk of the offline path, its downloads included
     download       a chunk's occupancy and overflow bits to the host
     concat         the offline path's joining of the chunks
-    colors         the offline path's host colour gathers
+    colors         under ``chunk``: a chunk's colour gather on the device
+                   and its download; under ``offline``: the split into
+                   the per-frame list and the redone frames' colours
 
     redos          frames redone exactly (one per ``redo`` span)
     host_cleanups  cameras cleaned by ``ccl.clean_mask_host``
+    color_voxels   voxels whose colours a chunk's gather kept (its frames
+                   past the video's end and its redone frames left out)
 """
 
 from __future__ import annotations
