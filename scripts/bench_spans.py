@@ -20,7 +20,7 @@ the CPU).  Each prints one JSON line.
   harness's host time per call, the program's ``redos`` counter over the
   window beside the harness's count of redos, and its ``color_voxels``
   counter beside the voxels of the returned colours of the frames that
-  were not redone (offline).
+  were not redone, and its ``padded_frames`` counter (offline).
 * ``onoff``: one model of the live cell, ``--pairs`` windows of its
   traffic in which the recorder is on for every other frame; per window
   the host ms per call of the frames with it on and off, and the change.
@@ -87,8 +87,9 @@ def _bounds(record):
 
 def split(record, harness) -> dict:
     """The recorder's view of one window: ms per frame or call of each
-    (parent, name) of span, and its ``redos`` and ``color_voxels``
-    counters beside the harness's counts over the window."""
+    (parent, name) of span, its ``redos`` and ``color_voxels`` counters
+    beside the harness's counts over the window, and its
+    ``padded_frames``."""
     t0, t1, units = _bounds(record)
     got, overwritten = profiling.spans(t0, t1)
     counts, lost = profiling.counted(t0, t1)
@@ -115,6 +116,7 @@ def split(record, harness) -> dict:
             "color_voxels_returned": (
                 harness["returned_voxels"] - harness["redone_voxels"]
                 if "redos" in harness else None),
+            "padded_frames": counts.get("padded_frames", 0),
             "host_cleanups": counts.get("host_cleanups", 0)}
 
 

@@ -123,6 +123,30 @@ def test_carve_frames_batched_matches_per_frame(carve_rig):
         assert torch.equal(occ[f], o) and torch.equal(col[f], c)
 
 
+@pytest.mark.parametrize("nf", [1, 2, 5])
+def test_chunk_occupancy_is_row_major(carve_rig, nf):
+    """(exact) A chunk's canonical occupancy comes back as a C-contiguous
+    (NF, N) bool tensor, each frame equal to the per-frame table carve and
+    to K4's plain output taken through the frame-last canonical order."""
+    _, tt, ptab, masks = carve_rig
+    chunk = torch.from_numpy(masks[:nf])
+    got = tcb._carve_frames_device(chunk, tt, views_threshold=4)
+    assert got.shape == (nf, 32**3) and got.dtype == torch.bool
+    assert got.is_contiguous()
+    active, full = tcb.chunk_activity(chunk, tt, 4)
+    occ_b = tcb.carve_frames_plain(tt.pk, active, full, chunk,
+                                   views_threshold=4)
+    frame_last = tcb._blocked_to_canonical(
+        occ_b.reshape(nf, tt.nsuper, -1).permute(1, 2, 0), tt.sub_shape,
+        tt.sup_shape, tt.nblocks)  # (N, NF)
+    assert torch.equal(got, frame_last.t().bool())
+    images = torch.zeros((C, H, W, 3), dtype=torch.uint8)
+    for f in range(nf):
+        occ_f, _ = tcarve.carve_from_tables(chunk[f], images, ptab.valid,
+                                            ptab.lin_idx, views_threshold=4)
+        assert torch.equal(got[f], occ_f)
+
+
 def test_k4_wrapper_uses_plain_on_cpu_only(carve_rig):
     _, tt, _, masks = carve_rig
     chunk = torch.from_numpy(masks[:2])
@@ -435,6 +459,37 @@ def test_offline_matches_vbr_tpu(models):
         np.testing.assert_array_equal(occ_t[f], occ_f.numpy())
         np.testing.assert_array_equal(col_t[f][1],
                                       col_f.numpy()[col_t[f][0]])
+
+
+@pytest.mark.parametrize("F,nf", [(3, 3), (3, 2), (3, 8)])
+def test_offline_result_is_one_owned_row_major_array(models, F, nf):
+    """(exact) F a multiple of ``frames_per_launch``, not a multiple (the
+    last chunk padded on the device) and below it (one partial chunk): the
+    occupancy is one C-contiguous, writable (F, N) bool array that owns its
+    memory and shares none with the next call's, each frame and its
+    colours equal to the per-frame path; ``padded_frames`` grows by the
+    last chunk's padding."""
+    _, mt, frames = models
+    video = frames[:F]
+    t0 = time.perf_counter()
+    occ, colors = mt.process_frames_offline(video, frames_per_launch=nf)
+    counts, lost = profiling.counted(t0, time.perf_counter())
+    assert not lost
+    assert counts.get("padded_frames", 0) == (-F) % nf
+    assert occ.shape == (F, mt.grid.num_voxels) and occ.dtype == bool
+    assert occ.flags.c_contiguous and occ.flags.writeable
+    assert occ.flags.owndata and occ.base is None
+    again, _ = mt.process_frames_offline(video, frames_per_launch=nf)
+    assert not np.shares_memory(occ, again)
+    np.testing.assert_array_equal(occ, again)
+    assert len(colors) == F
+    for f in range(F):
+        occ_f, col_f = mt.process_frame(video[f])
+        np.testing.assert_array_equal(occ[f], occ_f.numpy())
+        idx, col = colors[f]
+        np.testing.assert_array_equal(idx, np.flatnonzero(occ[f]))
+        np.testing.assert_array_equal(col, col_f.numpy()[idx])
+    assert not (occ[0] == occ[1]).all()
 
 
 def test_offline_no_colors(models):

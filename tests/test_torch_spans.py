@@ -235,15 +235,15 @@ def test_an_offline_call_records_its_chunks(rig):
     roots = [s for s in got if s.parent == -1]
     assert [s.name for s in roots] == ["offline"]
     offline = roots[0]
-    assert _children(got, offline) == ["pad", "chunk", "chunk", "concat",
-                                       "redo", "colors"]
-    for chunk in (s for s in got if s.name == "chunk"):
-        assert _children(got, chunk) == ["upload", "masks", "cleanup",
-                                         "finalize", "carve", "download",
-                                         "colors"]
+    assert _children(got, offline) == ["chunk", "chunk", "redo", "colors"]
+    chunks = [s for s in got if s.name == "chunk"]
+    stages = ["masks", "cleanup", "finalize", "carve", "download", "colors"]
+    assert _children(got, chunks[0]) == ["upload"] + stages
+    assert _children(got, chunks[1]) == ["upload", "pad"] + stages
     assert {s.request for s in got} == {offline.request}
     assert counts["redos"] == 1 and counts["host_cleanups"] >= 1
     assert counts["color_voxels"] > 0
+    assert counts["padded_frames"] == 2
 
 
 def test_an_offline_call_without_padding_has_no_pad_span(rig):
@@ -251,9 +251,9 @@ def test_an_offline_call_without_padding_has_no_pad_span(rig):
     got, counts = _window(lambda: model.process_frames_offline(
         frames[:2], frames_per_launch=2, with_colors=False))
     offline = next(s for s in got if s.name == "offline")
-    assert _children(got, offline) == ["chunk", "concat"]
-    assert "colors" not in {s.name for s in got}
-    assert "color_voxels" not in counts
+    assert _children(got, offline) == ["chunk"]
+    assert not {"colors", "pad"} & {s.name for s in got}
+    assert not {"color_voxels", "padded_frames"} & set(counts)
 
 
 def test_the_stream_records_the_step_stages_as_roots(rig):

@@ -595,20 +595,24 @@ class VisualHull:
 
         Frames go through in chunks of ``frames_per_launch``: the mask
         stages run over every (frame, camera) image of the chunk and one
-        launch of kernel K4 carves all its frames (the last chunk is
-        padded by repeating the last frame; those outputs are dropped).
-        Per-frame occupancy equals :meth:`process_frame`; a frame that
-        overflows a component table is redone exactly through it.
+        launch of kernel K4 carves all its frames (a short last chunk is
+        padded on the device by repeating its last frame, counted as
+        ``padded_frames``; those outputs are not downloaded).  Each
+        chunk's real rows are downloaded straight into their rows of the
+        call's one (F, N) result.  Per-frame occupancy equals
+        :meth:`process_frame`; a frame that overflows a component table
+        is redone exactly through it.
 
         Colours are gathered on the device from the colour camera's frame
         at occupied voxels only, chunk by chunk while the chunk's
         occupancy and frames are resident
         (``carve_blocked.chunk_colors_device``, counted as
         ``color_voxels``); a redone frame takes them from its redo.
-        Returns ``(occ, colors)``: ``occ`` (F, N) bool canonical occupancy
-        and ``colors`` a per-frame list of ``(idx (M_f,) i64, col (M_f, 3)
-        u8 BGR)``, ``idx`` ascending, views into its chunk's download, or
-        None with ``with_colors=False``; all numpy.  Needs grid dims
+        Returns ``(occ, colors)``: ``occ`` (F, N) bool canonical occupancy,
+        C-contiguous and owned by the caller, and ``colors`` a per-frame
+        list of ``(idx (M_f,) i64, col (M_f, 3) u8 BGR)``, ``idx``
+        ascending, views into its chunk's download, or None with
+        ``with_colors=False``; all numpy.  Needs grid dims
         divisible by 8·sup (``ValueError`` otherwise).  Recorded as an
         ``offline`` span (``utils.profiling``)."""
         with span("offline"):
@@ -617,18 +621,21 @@ class VisualHull:
             frames = np.asarray(frames)
             F = frames.shape[0]
             NF = int(frames_per_launch)
-            pad = (-F) % NF
-            frames_p = frames
-            if pad:
-                with span("pad"):
-                    frames_p = np.concatenate(
-                        [frames, np.repeat(frames[-1:], pad, axis=0)])
             cc = self.rig.color_camera
             lin_idx = self.tables.lin_idx if with_colors else None
-            occ_chunks, ovf_chunks, color_chunks = [], [], []
-            for s in range(0, F + pad, NF):
+            occ = np.empty((F, self.grid.num_voxels), bool)
+            ovf = np.empty((F, frames.shape[1]), bool)
+            color_chunks = []
+            for s in range(0, F, NF):
+                n = min(NF, F - s)
                 with span("chunk"):
-                    frames_d = self._frames(frames_p[s:s + NF])
+                    frames_d = self._frames(frames[s:s + n])
+                    if n < NF:
+                        with span("pad"):
+                            last = frames_d[-1:]
+                            frames_d = torch.cat([frames_d, last.expand(
+                                (NF - n,) + last.shape[1:])])
+                            profiling.count("padded_frames", NF - n)
                     occ_c, ovf_c = _full_step_frames(
                         self._stacked_fz, frames_d,
                         self._btab, mask_params=self.mask_params,
@@ -638,8 +645,8 @@ class VisualHull:
                         views_threshold=self.rig.views_threshold,
                     )
                     with span("download"):
-                        occ_chunks.append(occ_c.cpu().numpy())
-                        ovf_chunks.append(ovf_c.cpu().numpy())
+                        torch.from_numpy(occ[s:s + n]).copy_(occ_c[:n])
+                        torch.from_numpy(ovf[s:s + n]).copy_(ovf_c[:n])
                     if with_colors:
                         with span("colors"):
                             got, ready = _start_download(
@@ -647,14 +654,10 @@ class VisualHull:
                                     occ_c, frames_d, lin_idx, cc))
                             _wait(ready)
                             counts, idx, col = (t.numpy() for t in got)
-                            kept = ((s + np.arange(NF) < F)
-                                    & ~ovf_chunks[-1].any(axis=1))
+                            kept = ~ovf[s:s + n].any(axis=1)
                             profiling.count("color_voxels",
-                                            int(counts[kept].sum()))
+                                            int(counts[:n][kept].sum()))
                             color_chunks.append((counts, idx, col))
-            with span("concat"):
-                occ = np.concatenate(occ_chunks)[:F]
-                ovf = np.concatenate(ovf_chunks)[:F]
             redone = {}
             for f in np.flatnonzero(ovf.any(axis=1)):  # exact redo, rare
                 occ_r, col_r = self._redo_tables(frames[f])

@@ -526,18 +526,21 @@ def carve_blocked_plain(pk, lcc, active, full, masks, image, *,
     return occ.to(torch.uint8), col.permute(0, 1, 3, 2).contiguous()
 
 
-def _blocked_to_canonical(x_blocked, sub, sup, nblocks):
-    """(nsuper, nsub·BV, *t) blocked → (N, *t) canonical C-order."""
+def _blocked_to_canonical(x_blocked, sub, sup, nblocks, lead=0):
+    """(*L, nsuper, nsub·BV, *t) blocked → (*L, N, *t) canonical C-order,
+    the ``lead`` axes L kept in front (one copy, row-major)."""
     gx, gy, gz = nblocks
     spx, spy, spz = sup
     sbx, sby, sbz = sub
-    trailing = tuple(x_blocked.shape[2:])
-    x = x_blocked.reshape((gx, gy, gz, spx, spy, spz, sbx, sby, sbz)
+    head = tuple(x_blocked.shape[:lead])
+    trailing = tuple(x_blocked.shape[lead + 2:])
+    x = x_blocked.reshape(head + (gx, gy, gz, spx, spy, spz, sbx, sby, sbz)
                           + trailing)
     fwd = (0, 3, 6, 1, 4, 7, 2, 5, 8)
-    inv = [fwd.index(k) for k in range(9)] + list(range(9, 9 + len(trailing)))
-    n = x_blocked.shape[0] * x_blocked.shape[1]
-    return x.permute(inv).reshape((n,) + trailing)
+    inv = (list(range(lead)) + [lead + fwd.index(k) for k in range(9)]
+           + list(range(lead + 9, lead + 9 + len(trailing))))
+    n = x_blocked.shape[lead] * x_blocked.shape[lead + 1]
+    return x.permute(inv).reshape(head + (n,) + trailing)
 
 
 def carve_blocked(masks: torch.Tensor, image: torch.Tensor,
@@ -654,16 +657,18 @@ def chunk_activity(masks: torch.Tensor, tables: BlockTables,
 def _carve_frames_device(masks: torch.Tensor, tables: BlockTables, *,
                          views_threshold: int) -> torch.Tensor:
     """One launch over a chunk: (NF, C, H, W) u8 masks → (NF, N) bool
-    canonical occupancy, with the flags of :func:`chunk_activity`."""
+    canonical occupancy, row-major (a frame's voxels contiguous, so a
+    frame's row downloads as one block), with the flags of
+    :func:`chunk_activity`."""
     NF = masks.shape[0]
     active, full = chunk_activity(masks, tables, views_threshold)
     occ_b = carve_frames_kernel(tables.pk, active, full, masks.contiguous(),
                                 views_threshold=views_threshold)
     nsuper, nsub = tables.nsuper, tables.nsub
-    occ = _blocked_to_canonical(
-        occ_b.reshape(NF, nsuper, nsub * BV).permute(1, 2, 0),
-        tables.sub_shape, tables.sup_shape, tables.nblocks)  # (N, NF)
-    return occ.t().bool()
+    occ = _blocked_to_canonical(occ_b.reshape(NF, nsuper, nsub * BV),
+                                tables.sub_shape, tables.sup_shape,
+                                tables.nblocks, lead=1)
+    return occ.bool()
 
 
 def carve_frames_blocked(masks: torch.Tensor, tables: BlockTables, *,

@@ -36,10 +36,10 @@ The program's spans and counters (``models/visual_hull.py``):
     carve          block activity and kernel K1 or K4, or the table carve
     overflow_wait  the live step's wait for the cleanup's overflow bits
     redo           a frame redone exactly (host cleanup or table path)
-    pad            the offline path's padding of the last chunk
     chunk          one chunk of the offline path, its downloads included
-    download       a chunk's occupancy and overflow bits to the host
-    concat         the offline path's joining of the chunks
+    pad            under the last ``chunk``: its padding on the device
+    download       a chunk's occupancy and overflow bits into their rows
+                   of the call's result on the host
     colors         under ``chunk``: a chunk's colour gather on the device
                    and its download; under ``offline``: the split into
                    the per-frame list and the redone frames' colours
@@ -48,6 +48,7 @@ The program's spans and counters (``models/visual_hull.py``):
     host_cleanups  cameras cleaned by ``ccl.clean_mask_host``
     color_voxels   voxels whose colours a chunk's gather kept (its frames
                    past the video's end and its redone frames left out)
+    padded_frames  frames that padded an offline call's last chunk
 """
 
 from __future__ import annotations
