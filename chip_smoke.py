@@ -1390,8 +1390,7 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
     from scipy import ndimage
 
     from vbr_tpu_torch.models.visual_hull import (
-        _decode_surface_wire, _encode_surface_wire, _ingest, _start_download,
-        _wait)
+        _decode_surface_wire, _encode_surface_wire, _start_download, _wait)
     from vbr_tpu_torch.ops import marching_cubes as mc
     from vbr_tpu_torch.ops.texturing import TexturingTables
 
@@ -1408,14 +1407,14 @@ def surface_phase(torch, dev, kernels, flush, model, model_cpu, frame0,
     def raw_surface(m, fr, pair=SURFACE_PAIR):
         """The surface step's device outputs → (verts, valid, n_active,
         overflow)."""
-        occ_s, _, ovf = m._step(m._frames(fr))
+        occ_s, _, ovf = m._step(m._frames(fr), m._carve_kernel("auto"))
         return (*mc.surface_program(occ_s.reshape(m.grid.shape),
                                     algorithm=pair[0], ambiguity=pair[1],
                                     capacity=cap), ovf)
 
     def wire_of(m, fr):
         """The surface step's one-buffer wire."""
-        occ_s, _, ovf = m._step(m._frames(fr))
+        occ_s, _, ovf = m._step(m._frames(fr), m._carve_kernel("auto"))
         return _encode_surface_wire(occ_s, ovf, m.grid.shape, cap)
 
     def cpu_surface(occ_cpu, pair):
@@ -1688,8 +1687,7 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
     from scipy import ndimage
 
     from vbr_tpu_torch.models.visual_hull import (
-        _decode_surface_wire, _encode_surface_wire, _ingest, _start_download,
-        _wait)
+        _decode_surface_wire, _encode_surface_wire, _start_download, _wait)
     from vbr_tpu_torch.ops import carve_blocked as cb
     from vbr_tpu_torch.ops import color as color_ops
     from vbr_tpu_torch.ops import marching_cubes as mc
@@ -1722,7 +1720,8 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
     upload_bytes = {"bgr": C * H * W * 3, "yuv420": C * H * 3 // 2 * W,
                     "yuv420_roi": C * roi_hw[0] * 3 // 2 * roi_hw[1]}
     roi_upload = float(np.mean([upload_bytes[md] for md in modes]))
-    wire_bytes = int(m._dispatch(m._frames(frames[0]), "packed").numel())
+    wire_bytes = int(m._step(m._frames(frames[0]), "blocked",
+                             "packed").numel())
     print(f"  upload bytes per frame: {upload_bytes}; the tracker sends "
           f"{modes.count('yuv420')} of {len(frames)} frames to full-frame "
           f"yuv420 (modes {modes}), so yuv420_roi uploads {roi_upload:.0f} B "
@@ -1745,7 +1744,7 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
         for fr in frames:
             mode, upload, off = m._ingest_prepare(ingest, tr, fr)
             words.append(cb.decode_wire(
-                m._dispatch(m._frames(upload), "packed", mode, off),
+                m._step(m._frames(upload), "blocked", "packed", mode, off),
                 total_voxels=nvox)[0])
         report["redone"][ingest] = words
     print(f"  wire overflow word per frame (1: the frame is redone from its "
@@ -1757,9 +1756,7 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
         tr = m._roi_tracker(roi_hw)
         tr.update(frames[1])
         mode, upload, off = m._ingest_prepare(ingest, tr, frames[2])
-        raw, _ = _ingest(m._stacked_fz, m._frames(upload),
-                         mask_params=m.mask_params, use_hsv=True,
-                         ingest=mode, roi_offsets=off)
+        raw, _ = m._stage.head(m._frames(upload), mode, off)
         raw = raw.cpu().numpy() > 0
         comps[ingest] = [[ndimage.label(ph, structure=np.ones((3, 3)))[1]
                           for ph in (r, ~r)] for r in raw]
@@ -1866,21 +1863,22 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
     tr.update(frames[0])
     for ingest in INGESTS:
         mode, upload, off = m._ingest_prepare(ingest, tr, frames[1])
-        wire = m._dispatch(m._frames(upload), "packed", mode, off)
-        wire_c = mc_cpu._dispatch(mc_cpu._frames(upload), "packed", mode,
-                                  off)
+        wire = m._step(m._frames(upload), "blocked", "packed", mode, off)
+        wire_c = mc_cpu._step(mc_cpu._frames(upload), "blocked", "packed",
+                              mode, off)
         head = cb.decode_wire(wire, total_voxels=nvox)[:3]
         expect(torch.equal(wire.cpu(), wire_c),
                f"rig frame 1's wire from a {mode!r} upload ({wire.numel()} "
                f"B; overflow word, occupied sub-blocks, voxels {head}) "
                f"byte-equal on {dev.type} and on the CPU")
-    wire = m._dispatch(m._frames(frames[0]), "packed")
+    wire = m._step(m._frames(frames[0]), "blocked", "packed")
     n_blocks = cb.decode_wire(wire, total_voxels=nvox)[1]
     k_default = cb.WIRE_K_BLOCKS
     cb.WIRE_K_BLOCKS = n_blocks - 1
     try:
-        forced = cb.decode_wire(m._dispatch(m._frames(frames[0]), "packed"),
-                                total_voxels=nvox)[0]
+        forced = cb.decode_wire(
+            m._step(m._frames(frames[0]), "blocked", "packed"),
+            total_voxels=nvox)[0]
         got = list(m.stream_viewer(iter(frames[:2])))
         want = list(mc_cpu.stream_viewer(iter(frames[:2])))
     finally:
@@ -1890,8 +1888,9 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
            f"a wire of {n_blocks - 1} sub-blocks overflows on rig frame 0; "
            "stream_viewer takes the exact fallback, equal on the card and "
            "on the CPU and to the lossless arrays")
-    ovf_word = cb.decode_wire(model._dispatch(model._frames(fo), "packed"),
-                              total_voxels=model.grid.num_voxels)[0]
+    ovf_word = cb.decode_wire(
+        model._step(model._frames(fo), "blocked", "packed"),
+        total_voxels=model.grid.num_voxels)[0]
     got = list(model.stream_viewer(iter([fo])))
     want = list(model_cpu.stream_viewer(iter([fo])))
     expect(ovf_word == 1 and same_arrays(got[0], want[0]) and len(got[0][0]),
@@ -1941,7 +1940,7 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
     track_ms, _ = host_ms(lambda: tracker.update(stack[1]))
     crop_ms, _ = host_ms(lambda: color_ops.bgr_to_yuv420_host(
         tracker.crop(stack[1])))
-    occ0, _, ovf0 = m._step(m._frames(frames[0]))
+    occ0, _, ovf0 = m._step(m._frames(frames[0]), m._carve_kernel("auto"))
     (buf,), ready = _start_download((_encode_surface_wire(
         occ0, ovf0, m.grid.shape, SURFACE_CAPACITY),))
     _wait(ready)
@@ -1974,8 +1973,8 @@ def viewer_phase(torch, dev, kernels, flush, model, model_cpu, fo, rig,
             torch.cuda.set_sync_debug_mode("error")
             try:
                 mode, upload, off = m._ingest_prepare(ingest, t, frames[1])
-                _start_download((m._dispatch(m._frames(upload), "packed",
-                                             mode, off),))
+                _start_download((m._step(m._frames(upload), "blocked",
+                                         "packed", mode, off),))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             sync(torch, dev)
@@ -4704,11 +4703,8 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     fo = paint_frame(rng, cams, bg, center0, speckle=0)
     fo[:, ::3, ::3] = subject_texture(H, W)[::3, ::3]  # components > kf
     _, _, ovf = _full_step(
-        model._stacked_fz, torch.from_numpy(fo).to(dev), btab,
-        mask_params=model.mask_params, use_hsv=True,
-        fig_thresholds=model._fig_thresholds,
-        inner_thresholds=model._inner_thresholds, views_threshold=vt,
-        layout="canonical")
+        model._stage, torch.from_numpy(fo).to(dev), btab,
+        views_threshold=vt, layout="canonical")
     expect(bool(ovf.any()), f"overflow bits set: {ovf.tolist()}")
     occ_o, col_o = model.process_frame_fast(fo)
     occ_oc, col_oc = model_cpu.process_frame_fast(fo)

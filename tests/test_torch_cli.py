@@ -78,7 +78,9 @@ def _trained_once(cls, store):
             train(self, source)
             store[key] = (list(self.bg_states), list(self.mog_params))
         self.bg_states, self.mog_params = (list(x) for x in store[key])
-        if hasattr(self, "_stacked_fz"):
+        if isinstance(self, tvh.VisualHull):
+            self._stage = None
+        elif hasattr(self, "_stacked_fz"):
             self._stacked_fz = None
 
     return train_background

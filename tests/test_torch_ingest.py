@@ -309,8 +309,10 @@ def test_table_step_takes_the_roi_mask_stage(models):
     for fr in frames[:2]:
         mode, upload, off = mt._ingest_prepare("yuv420_roi", tracker, fr)
         up = torch.from_numpy(upload)
-        blocked = mt._step(up, "blocked", ingest=mode, roi_offsets=off)
-        tables = mt._step(up, "tables", ingest=mode, roi_offsets=off)
+        blocked = mt._step(up, mt._carve_kernel("blocked"), ingest=mode,
+                           roi_offsets=off)
+        tables = mt._step(up, mt._carve_kernel("tables"), ingest=mode,
+                          roi_offsets=off)
         assert torch.equal(blocked[0], tables[0]) and int(tables[0].sum())
         on = tables[0]
         assert torch.equal(blocked[1][on], tables[1][on])

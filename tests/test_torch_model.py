@@ -145,11 +145,9 @@ def test_overflow_frame_redone_exactly(models):
     frame = _frame(rng, bg, (60.0, -40.0, -650.0), speckle=0)
     frame[:, ::3, ::3] = FG_BGR  # > kf isolated components per camera
     _, _, ovf_j = _jax_step(mj, frame, "blocked")
+    mt._ensure_fast_state()
     occ_s, col_s, ovf_t = tvh._full_step(
-        mt._stacked_fz, torch.from_numpy(frame), mt._btab,
-        mask_params=mt.mask_params, use_hsv=True,
-        fig_thresholds=mt._fig_thresholds,
-        inner_thresholds=mt._inner_thresholds, views_threshold=4,
+        mt._stage, torch.from_numpy(frame), mt._btab, views_threshold=4,
         layout="blocked")
     np.testing.assert_array_equal(ovf_t.numpy(), np.asarray(ovf_j))
     assert ovf_t.numpy().any()
@@ -225,3 +223,30 @@ def test_odd_grid_fast_path_raises(models):
     assert occ.shape == (20 * 16 * 16,)
     occ_f, col_f = m2.process_frame_fast(frames[0])
     assert torch.equal(occ_f, occ) and torch.equal(col_f, col)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_in_flight_order(depth):
+    """The streams' queue: item N + ``depth`` is dispatched before item N
+    is resolved (and no later item), and the results come out in input
+    order."""
+    log = []
+
+    def dispatch(i):
+        log.append(("dispatch", i))
+        return i
+
+    def resolve(i):
+        log.append(("resolve", i))
+        return 10 * i
+
+    n = 7
+    got = list(tvh._in_flight(iter(range(n)), dispatch, resolve, depth))
+    assert got == [10 * i for i in range(n)]
+    at = {e: k for k, e in enumerate(log)}
+    assert len(at) == 2 * n
+    for i in range(n):
+        if i + depth < n:
+            assert at["dispatch", i + depth] < at["resolve", i]
+        if i + depth + 1 < n:
+            assert at["resolve", i] < at["dispatch", i + depth + 1]

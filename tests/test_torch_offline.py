@@ -509,10 +509,7 @@ def test_offline_overflow_frame_redone_exactly(models):
     mt._ensure_fast_state()
     mt._ensure_btab()
     _, ovf = tvh._full_step_frames(
-        mt._stacked_fz, torch.from_numpy(frames[:2]), mt._btab,
-        mask_params=mt.mask_params, use_hsv=True,
-        fig_thresholds=mt._fig_thresholds,
-        inner_thresholds=mt._inner_thresholds, views_threshold=4)
+        mt._stage, torch.from_numpy(frames[:2]), mt._btab, views_threshold=4)
     assert ovf.shape == (2, C)
     assert ovf[1].any() and not ovf[0].any()
     occ_t, col_t = mt.process_frames_offline(frames, frames_per_launch=2)

@@ -311,8 +311,8 @@ def test_runner_overflow_frame_is_exercised():
     """The fourth batch's second frame overflows the device tables in the
     port (so the runner test above covers the redo)."""
     model, batches = R.port_model()
-    _, _, ovf = model._step(torch.from_numpy(batches[3][1]), "blocked",
-                            "blocked")
+    _, _, ovf = model._step(torch.from_numpy(batches[3][1]),
+                            model._carve_kernel("blocked"), "blocked")
     assert bool(ovf.any())
 
 

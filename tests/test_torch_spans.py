@@ -223,7 +223,8 @@ def test_a_burst_frame_is_redone_under_its_step(rig):
     step = next(s for s in got if s.name == "step")
     assert _children(got, step) == STAGES + ["redo"]
     redo = next(s for s in got if s.name == "redo")
-    assert _children(got, redo) == ["upload"]  # the masks' own upload
+    # the masks' own upload, then the mask stage
+    assert _children(got, redo) == ["upload", "masks", "cleanup", "finalize"]
     assert counts["redos"] == 1 and counts["host_cleanups"] >= 1
 
 

@@ -481,7 +481,8 @@ def test_full_step_surface_raw_outputs_match(models):
         inner_thresholds=mj._inner_thresholds,
         views_threshold=mj.rig.views_threshold, grid_shape=mj.grid.shape,
         algorithm="cubes", ambiguity="join", capacity=CAP, interpret=True)
-    occ, col, ovf = mt._step(torch.from_numpy(frames[0]))
+    occ, col, ovf = mt._step(torch.from_numpy(frames[0]),
+                             mt._carve_kernel("auto"))
     assert mt._btab is not None
     got = (*tmc.surface_program(occ.reshape(mt.grid.shape), algorithm="cubes",
                                 ambiguity="join", capacity=CAP),
@@ -512,7 +513,8 @@ def test_component_overflow_redone_on_the_table_path(models):
     mj, mt, frames = models
     frame = frames[0].copy()
     frame[:, ::3, ::3] = FG_BGR  # more isolated components than the tables
-    assert bool(mt._step(torch.from_numpy(frame))[2].any())
+    assert bool(mt._step(torch.from_numpy(frame),
+                         mt._carve_kernel("auto"))[2].any())
     want = mj.process_frame_surface(frame, capacity=CAP)
     got = mt.process_frame_surface(frame, capacity=CAP)
     for g, w in zip(got, want):

@@ -262,7 +262,8 @@ def test_full_step_packed_matches(models, ingest):
     mt._ensure_fast_state()
     upload, off = _uploads(mj, mt, frames[1])[ingest]
     want = np.asarray(jax_step(mj, upload, "packed", ingest, off))
-    got = mt._dispatch(torch.from_numpy(upload), "packed", ingest, off)
+    got = mt._step(torch.from_numpy(upload), "blocked", "packed", ingest,
+                   off)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
     assert tcb.decode_wire(want, total_voxels=mt.grid.num_voxels)[2] > 50
@@ -306,7 +307,7 @@ def test_stream_viewer_pack_overflow_takes_the_fallback(models,
     _, mt, _, frames = models
     want = list(mt.stream_viewer(iter(frames[:2])))
     monkeypatch.setattr(tcb, "WIRE_K_BLOCKS", 4)
-    wire = mt._dispatch(torch.from_numpy(frames[0]), "packed")
+    wire = mt._step(torch.from_numpy(frames[0]), "blocked", "packed")
     assert tcb.decode_wire(wire, total_voxels=mt.grid.num_voxels)[0] == 1
     got = list(mt.stream_viewer(iter(frames[:2])))
     for (pos, rgb), (pos_w, rgb_w) in zip(got, want):

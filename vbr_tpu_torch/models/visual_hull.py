@@ -12,14 +12,17 @@ through kernel K3, or loaded) + carve tables, with the per-frame step
 ``process_frame_fast`` and ``stream`` run that step (``_full_step``, the
 counterpart of ``_full_step_pallas`` with ``ingest="bgr"``) and redo a
 frame exactly through the host cleanup when a camera overflows the
-device component tables.  On a grid whose dims are not divisible by
-8·sup there are no blocked tables: ``process_frame_fast`` then runs the
-table step (``_full_step_tables``: the same mask stages, then the f64
-table carve), and ``stream`` and ``process_frames_offline`` refuse.
+device component tables.  Every step is composed the same way: the
+upload (``_frames``), the mask stage (``background.MaskStage``, built
+once per set of background models), then the carve.  On a grid whose
+dims are not divisible by 8·sup there are no blocked tables:
+``process_frame_fast`` then runs the table step (the same mask stage,
+then the f64 table carve), and ``stream`` and ``process_frames_offline``
+refuse.
 ``process_frame`` is the plain f64 table path.  ``VisualHull(cache_dir=)``
 keeps the f64 tables in the JAX package's npz cache.  Their outputs are
 torch tensors on the model's device.
-``process_frames_offline`` runs the mask stages over every (frame, camera)
+``process_frames_offline`` runs the mask stage over every (frame, camera)
 image of a chunk and carves the chunk in one launch of kernel K4
 (``_full_step_frames``); it returns host arrays.
 
@@ -52,8 +55,9 @@ shard on each rank's device, with a superblock placement that can be
 re-balanced; every rank gets numpy blocked outputs of the whole batch.
 
 The host records its own spans and counters (``utils.profiling``, which
-lists them): the step functions' stages (``masks``, ``cleanup``,
-``finalize``, ``carve``) wherever they run, each upload, each exact redo
+lists them): the mask stage's parts (``masks``, ``cleanup``,
+``finalize``, opened by ``MaskStage``) and the ``carve`` wherever they
+run, each upload, each exact redo
 (``redo`` and the ``redos`` counter), the live step whole (``step``) and
 its wait for the overflow bits, and the offline path's call, chunks,
 downloads, copies and colour gathers.
@@ -70,7 +74,7 @@ import numpy as np
 import torch
 
 from vbr_tpu_torch.ops import carve as carve_ops
-from vbr_tpu_torch.ops import carve_blocked, ccl, texturing
+from vbr_tpu_torch.ops import carve_blocked, texturing
 from vbr_tpu_torch.ops import color as color_ops
 from vbr_tpu_torch.ops import marching_cubes as mc
 from vbr_tpu_torch.ops.gmm import MOGState
@@ -118,7 +122,7 @@ class VisualHull:
         # blocked carve tables, built on the first fast step; None where
         # the grid cannot be blocked
         self._btab = _UNBUILT
-        self._stacked_fz = None
+        self._stage = None  # background.MaskStage, built on first use
         self._tex_tables = None  # texturing tables, built on first use
 
     @property
@@ -154,22 +158,16 @@ class VisualHull:
             return host.pin_memory().to(self.device, non_blocking=True)
 
     def _ensure_fast_state(self):
-        if self._stacked_fz is None:
-            self._fig_thresholds = tuple(
-                float(p.figure_threshold) for p in self.mask_params)
-            self._inner_thresholds = tuple(
-                float(p.inner_threshold) for p in self.mask_params)
-            p0 = self.mog_params[0]
-            fields = ("bg_ratio", "use_hsv", "match_sigma")
-            for p in self.mog_params[1:]:
-                if any(getattr(p, f) != getattr(p0, f) for f in fields):
-                    raise ValueError(
-                        "the batched mask stage needs uniform MOG apply "
-                        "params (bg_ratio, use_hsv, match_sigma) across "
-                        f"cameras; got {[(q.bg_ratio, q.use_hsv, q.match_sigma) for q in self.mog_params]}"
-                    )
-            self._stacked_fz = background.stack_frozen(
-                self.bg_states, p0, self.device)
+        """The mask stage of the background models, built at first call."""
+        if self._stage is None:
+            self._stage = background.MaskStage.build(
+                self.bg_states, self.mog_params, self.mask_params,
+                self.device)
+
+    @property
+    def _stacked_fz(self):
+        """The mask stage's compressed frozen models."""
+        return self._stage.fz
 
     def _ensure_btab(self):
         """The blocked carve tables, built at first call (on the device from
@@ -237,19 +235,20 @@ class VisualHull:
             self.bg_states.append(background.train_background_model(
                 frames, p, device=self.device))
             self.mog_params.append(p)
-        self._stacked_fz = None
+        self._stage = None
 
     # -- per-frame step ---------------------------------------------------
 
     def masks(self, frames, ccl_backend: str = "device") -> torch.Tensor:
         """(C, H, W) u8 cleaned masks on the model's device.
 
-        ``ccl_backend="device"`` (default) runs the mask stages of all
-        cameras at once with the device cleanup (kernel K2), each overflowed
-        camera redone exactly by the host cleanup; ``"host"`` and
-        ``"device-xla"`` run ``background.extract_foreground_mask`` camera
-        by camera with that cleanup route, each camera's background model
-        on the model's device.  All three give the same masks."""
+        ``ccl_backend="device"`` (default) runs the mask stage of all
+        cameras at once with the device cleanup (kernel K2), each
+        overflowed camera redone exactly by the host cleanup
+        (``MaskStage.exact``); ``"host"`` and ``"device-xla"`` run
+        ``background.extract_foreground_mask`` camera by camera with that
+        cleanup route, each camera's background model on the model's
+        device.  All three give the same masks."""
         frames_d = self._frames(frames)
         if ccl_backend != "device":
             return torch.stack([
@@ -259,23 +258,7 @@ class VisualHull:
                     ccl_backend=ccl_backend)
                 for c in range(frames_d.shape[0])])
         self._ensure_fast_state()
-        raw = background.raw_masks_batched_fz(
-            self._stacked_fz, frames_d, self.mask_params,
-            self.mog_params[0].use_hsv)
-        cleaned, ovf = ccl.clean_masks_batched(
-            raw, self._fig_thresholds, self._inner_thresholds)
-        masks = background.finalize_masks_batched(cleaned, self.mask_params)
-        ovf = ovf.cpu().numpy()
-        if ovf.any():
-            raw_h = raw.cpu().numpy()
-            for c in np.flatnonzero(ovf):
-                profiling.count("host_cleanups")
-                p = self.mask_params[c]
-                cleaned_c = ccl.clean_mask_host(
-                    raw_h[c], p.figure_threshold, p.inner_threshold)
-                masks[c] = background.finalize_masks_batched(
-                    torch.from_numpy(cleaned_c)[None].to(self.device), (p,))[0]
-        return masks
+        return self._stage.exact(frames_d)
 
     def process_frame(self, frames, masks=None):
         """Plain table-path step → (occupancy (N,) bool, colors (N, 3) u8)."""
@@ -285,17 +268,6 @@ class VisualHull:
             masks, frames_d, self.tables.valid, self.tables.lin_idx,
             views_threshold=self.rig.views_threshold,
             color_camera=self.rig.color_camera,
-        )
-
-    def _dispatch(self, frames_d, layout, ingest="bgr", roi_offsets=None):
-        return _full_step(
-            self._stacked_fz, frames_d, self._btab,
-            mask_params=self.mask_params,
-            use_hsv=self.mog_params[0].use_hsv,
-            fig_thresholds=self._fig_thresholds,
-            inner_thresholds=self._inner_thresholds,
-            views_threshold=self.rig.views_threshold, layout=layout,
-            ingest=ingest, roi_offsets=roi_offsets,
         )
 
     def _redo(self, frames_d, layout):
@@ -351,25 +323,28 @@ class VisualHull:
             self._blocked_tables_for("the blocked carve")
         return carve_kernel
 
-    def _step(self, frames_d, carve_kernel="auto", layout="canonical",
-              ingest="bgr", roi_offsets=None):
+    def _step(self, frames_d, kind, layout="canonical", ingest="bgr",
+              roi_offsets=None):
         """Queue the fused per-frame step on an upload in format ``ingest``
-        → (occ, col, ovf) on the model's device: kernels K2 and K1 on the
-        blocked tables (their plain versions on a CPU model), or the table
-        step (``"tables"``, which returns canonical order whatever
-        ``layout``)."""
-        if self._carve_kernel(carve_kernel) == "blocked":
-            return self._dispatch(frames_d, layout, ingest, roi_offsets)
-        return _full_step_tables(
-            self._stacked_fz, frames_d, self.tables,
-            mask_params=self.mask_params,
-            use_hsv=self.mog_params[0].use_hsv,
-            fig_thresholds=self._fig_thresholds,
-            inner_thresholds=self._inner_thresholds,
-            views_threshold=self.rig.views_threshold,
-            color_camera=self.rig.color_camera,
-            ingest=ingest, roi_offsets=roi_offsets,
-        )
+        (see ``MaskStage.head``) → (occ, col, ovf) on the model's device,
+        the carve ``kind`` resolved by :meth:`_carve_kernel`: kernels K2
+        and K1 on the blocked tables (their plain versions on a CPU model),
+        with ``layout="packed"`` the viewer wire alone (see
+        :func:`_full_step`); or the table step (``"tables"``, which returns
+        canonical order whatever ``layout``)."""
+        if kind == "blocked":
+            return _full_step(
+                self._stage, frames_d, self._btab,
+                views_threshold=self.rig.views_threshold, layout=layout,
+                ingest=ingest, roi_offsets=roi_offsets)
+        t = self.tables
+        masks, ovf, frames_d = self._stage(frames_d, ingest, roi_offsets)
+        with span("carve"):
+            occ, col = carve_ops.carve_from_tables(
+                masks, frames_d, t.valid, t.lin_idx,
+                views_threshold=self.rig.views_threshold,
+                color_camera=self.rig.color_camera)
+        return occ, col, ovf
 
     def stream(self, frames_iter, layout: str = "blocked"):
         """Streaming reconstruction: frame N+1's step is queued on the
@@ -378,15 +353,18 @@ class VisualHull:
         per frame in ``layout`` order."""
         self._ensure_fast_state()
         self._blocked_tables_for("stream")
-        pending = None
-        for frames in frames_iter:
+
+        def dispatch(frames):
             frames_d = self._frames(frames)
-            cur = (*self._dispatch(frames_d, layout), frames_d)
-            if pending is not None:
-                yield self._resolve(pending, layout)
-            pending = cur
-        if pending is not None:
-            yield self._resolve(pending, layout)
+            return (*self._step(frames_d, "blocked", layout), frames_d)
+
+        def resolve(entry):
+            occ, col, ovf, frames_d = entry
+            if bool(ovf.any()):
+                return self._redo(frames_d, layout)
+            return occ, col
+
+        yield from _in_flight(frames_iter, dispatch, resolve, 1)
 
     def sharded_runner(self, mesh, order: str = "strided",
                        costing_frames=None,
@@ -417,24 +395,17 @@ class VisualHull:
                              costing_frames=costing_frames,
                              rebalance_every=rebalance_every)
 
-    def _resolve(self, entry, layout):
-        occ, col, ovf, frames_d = entry
-        if bool(ovf.any()):
-            return self._redo(frames_d, layout)
-        return occ, col
-
     # -- thin-link viewer stream -------------------------------------------
 
     def _roi_tracker(self, roi_hw):
         """The ROI tracker, classifying with the frozen model itself on a
         strided grid (``utils.roi``)."""
-        fz = self._stacked_fz
+        fz = self._stage.fz
         return MotionROITracker(
             carve_ops.to_host(fz.mean), carve_ops.to_host(fz.thr),
             carve_ops.to_host(fz.bcount), roi_hw,
-            use_hsv=self.mog_params[0].use_hsv,
-            figure_threshold=min(p.figure_threshold
-                                 for p in self.mask_params))
+            use_hsv=self._stage.use_hsv,
+            figure_threshold=min(self._stage.fig_thresholds))
 
     def _ingest_prepare(self, ingest, tracker, frames):
         """The host side of an upload → (mode, upload, roi offsets or
@@ -479,15 +450,14 @@ class VisualHull:
         self._blocked_tables_for("stream_viewer")
         tracker = (self._roi_tracker(roi_hw) if ingest == "yuv420_roi"
                    else None)
-        q = collections.deque()
 
         def dispatch(frames):
             # the BGR frames ride along for the exact fallback; only the
             # upload takes the reduced format
             mode, upload, roi_off = self._ingest_prepare(ingest, tracker,
                                                          frames)
-            wire = self._dispatch(self._frames(upload), "packed", mode,
-                                  roi_off)
+            wire = self._step(self._frames(upload), "blocked", "packed",
+                              mode, roi_off)
             (wire,), ready = _start_download((wire,))
             return wire, ready, frames
 
@@ -506,12 +476,7 @@ class VisualHull:
                 packed_k, ids, n_blocks, n_vox, cols, self._btab, self.grid,
                 self.rig.scaling_factor)
 
-        for frames in frames_iter:
-            q.append(dispatch(frames))
-            if len(q) > depth:
-                yield resolve(q.popleft())
-        while q:
-            yield resolve(q.popleft())
+        yield from _in_flight(frames_iter, dispatch, resolve, depth)
 
     def validate_reduced_ingest(self, frames, ingest: str = "yuv420",
                                 roi_hw=(320, 224)):
@@ -530,41 +495,25 @@ class VisualHull:
         For ``"yuv420_roi"`` one tracker update places the windows; its
         full-frame signal (always set on a first frame) is ignored, since
         the guard measures the ROI path's loss at that placement."""
+        if ingest not in INGESTS[1:]:
+            raise ValueError(f"unknown reduced ingest {ingest!r}")
         self._ensure_fast_state()
         frames = carve_ops.to_host(frames)
         frames_d = self._frames(frames)
-        image_hw = tuple(frames.shape[1:3])
-
-        def masks_of(raw):
-            cleaned, _ = ccl.clean_masks_batched(
-                raw, self._fig_thresholds, self._inner_thresholds)
-            return background.finalize_masks_batched(cleaned,
-                                                     self.mask_params)
-
-        use_hsv = self.mog_params[0].use_hsv
-        m_exact = masks_of(background.raw_masks_batched_fz(
-            self._stacked_fz, frames_d, self.mask_params, use_hsv))
+        m_exact, _, _ = self._stage(frames_d)
         region = torch.ones(frames.shape[:3], dtype=torch.bool,
                             device=self.device)
+        offsets, upload = None, frames
         if ingest == "yuv420_roi":
             tracker = self._roi_tracker(roi_hw)
             offsets, _ = tracker.update(frames)
-            rois = color_ops.yuv420_to_bgr_u8(self._frames(
-                color_ops.bgr_to_yuv420_host(tracker.crop(frames))))
-            m_red = masks_of(background.raw_masks_batched_fz_roi(
-                self._stacked_fz, rois, offsets, self.mask_params, use_hsv,
-                image_hw=image_hw))
-            recon = background.paste_rois(rois, offsets, image_hw)
+            upload = tracker.crop(frames)
             region = torch.zeros_like(region)
             for c, (y0, x0) in enumerate(offsets.tolist()):
                 region[c, y0:y0 + roi_hw[0], x0:x0 + roi_hw[1]] = True
-        elif ingest == "yuv420":
-            recon = color_ops.yuv420_to_bgr_u8(self._frames(
-                color_ops.bgr_to_yuv420_host(frames)))
-            m_red = masks_of(background.raw_masks_batched_fz(
-                self._stacked_fz, recon, self.mask_params, use_hsv))
-        else:
-            raise ValueError(f"unknown reduced ingest {ingest!r}")
+        m_red, _, recon = self._stage(
+            self._frames(color_ops.bgr_to_yuv420_host(upload)), ingest,
+            offsets)
         err = (recon.to(torch.int32) - frames_d.to(torch.int32)).abs()
         chan_err = int(err.amax(dim=-1)[region].max())
         a, b = m_exact > 0, m_red > 0
@@ -594,7 +543,7 @@ class VisualHull:
         """Batched reconstruction of a frame sequence (F, C, H, W, 3) u8.
 
         Frames go through in chunks of ``frames_per_launch``: the mask
-        stages run over every (frame, camera) image of the chunk and one
+        stage runs over every (frame, camera) image of the chunk and one
         launch of kernel K4 carves all its frames (a short last chunk is
         padded on the device by repeating its last frame, counted as
         ``padded_frames``; those outputs are not downloaded).  Each
@@ -637,13 +586,8 @@ class VisualHull:
                                 (NF - n,) + last.shape[1:])])
                             profiling.count("padded_frames", NF - n)
                     occ_c, ovf_c = _full_step_frames(
-                        self._stacked_fz, frames_d,
-                        self._btab, mask_params=self.mask_params,
-                        use_hsv=self.mog_params[0].use_hsv,
-                        fig_thresholds=self._fig_thresholds,
-                        inner_thresholds=self._inner_thresholds,
-                        views_threshold=self.rig.views_threshold,
-                    )
+                        self._stage, frames_d, self._btab,
+                        views_threshold=self.rig.views_threshold)
                     with span("download"):
                         torch.from_numpy(occ[s:s + n]).copy_(occ_c[:n])
                         torch.from_numpy(ovf[s:s + n]).copy_(ovf_c[:n])
@@ -724,8 +668,9 @@ class VisualHull:
         ``algorithm="tetrahedra"`` takes the 6-tet decomposition.
         """
         mc.table_emitter(algorithm, ambiguity, 0.5)  # validates the rule
+        kind = self._carve_kernel("auto")
         frames_d = self._frames(frames)
-        occ, col, ovf = self._step(frames_d)
+        occ, col, ovf = self._step(frames_d, kind)
         verts, valid, n_active = mc.surface_program(
             occ.reshape(self.grid.shape), algorithm=algorithm,
             ambiguity=ambiguity, capacity=capacity)
@@ -767,17 +712,16 @@ class VisualHull:
         if ingest not in INGESTS:
             raise ValueError(f"unknown ingest format {ingest!r}")
         mc.table_emitter(algorithm, ambiguity, 0.5)  # validates the rule
-        self._ensure_fast_state()
+        kind = self._carve_kernel("auto")
         origin, spacing = self._world_frame()
         tracker = (self._roi_tracker(roi_hw) if ingest == "yuv420_roi"
                    else None)
-        q = collections.deque()
 
         def dispatch(frames):
             mode, upload, roi_off = self._ingest_prepare(ingest, tracker,
                                                          frames)
             upload_d = self._frames(upload)
-            occ, col, ovf = self._step(upload_d, ingest=mode,
+            occ, col, ovf = self._step(upload_d, kind, ingest=mode,
                                        roi_offsets=roi_off)
             if transfer == "wire":
                 out = (_encode_surface_wire(occ, ovf, self.grid.shape,
@@ -813,12 +757,7 @@ class VisualHull:
                     algorithm=algorithm, ambiguity=ambiguity), occ_h
             return mc.world_triangles(verts, valid, origin, spacing), occ
 
-        for frames in frames_iter:
-            q.append(dispatch(frames))
-            if len(q) > depth:
-                yield resolve(q.popleft())
-        while q:
-            yield resolve(q.popleft())
+        yield from _in_flight(frames_iter, dispatch, resolve, depth)
 
     def extract_surface(self, frames, masks=None, algorithm: str = "cubes",
                         ambiguity: str = "join"):
@@ -875,7 +814,7 @@ class VisualHull:
             states.append(st)
         self.bg_states = states
         self.mog_params = [MOGParams() for _ in states]
-        self._stacked_fz = None
+        self._stage = None
         return True
 
 
@@ -924,15 +863,15 @@ class ShardedRunner:
             btab.nsuper, self._nshards, order, costs=costs)
         self._st = pallas_sharded.shard_block_tables(mesh, btab,
                                                      order=self.order)
+        stage = model._stage
         self._step = pallas_sharded.sharded_production_step(
-            mesh, use_hsv=model.mog_params[0].use_hsv,
+            mesh, use_hsv=stage.use_hsv,
             views_threshold=model.rig.views_threshold)
         # the frozen models and thresholds never change between batches:
         # placed once (tens of MB, not hot-path traffic)
         self._static_in = pallas_sharded.place_static_inputs(
-            mesh, model._stacked_fz, model._fig_thresholds,
-            model._inner_thresholds,
-            pallas_sharded.mask_flags_array(model.mask_params))
+            mesh, stage.fz, stage.fig_thresholds, stage.inner_thresholds,
+            pallas_sharded.mask_flags_array(stage.mask_params))
 
     # -- placement inspection / maintenance -------------------------------
 
@@ -984,7 +923,7 @@ class ShardedRunner:
 
     # -- the step ----------------------------------------------------------
 
-    def _dispatch(self, frames):
+    def _queue(self, frames):
         """Queue the sharded step on one (F, C, H, W, 3) batch and the
         downloads of its canonical blocked outputs."""
         D = axis_size(self.mesh, "data")
@@ -1016,7 +955,7 @@ class ShardedRunner:
         return occ_b, col_b
 
     def __call__(self, frames):
-        return self._resolve(self._dispatch(frames))
+        return self._resolve(self._queue(frames))
 
     def stream(self, batches_iter, depth: int = 2):
         """The sharded step over (F, C, H, W, 3) u8 batches with up to
@@ -1024,61 +963,31 @@ class ShardedRunner:
         read back and redone where they overflowed (the async dispatch of
         :meth:`VisualHull.stream`).  Yields ``(occ_b, col_b)`` per batch,
         equal to calling the runner on each."""
-        q = collections.deque()
-        for frames in batches_iter:
-            q.append(self._dispatch(frames))
-            if len(q) > depth:
-                yield self._resolve(q.popleft())
-        while q:
-            yield self._resolve(q.popleft())
+        return _in_flight(batches_iter, self._queue, self._resolve, depth)
 
 
-def _ingest(stacked_fz, upload, *, mask_params, use_hsv, ingest,
-            roi_offsets):
-    """The mask stage's head on an upload in format ``ingest`` → (raw masks
-    (C, H, W) u8 with pre-morphology, BGR frames (C, H, W, 3) u8).
-
-    ``"bgr"``: the frames themselves.  ``"yuv420"``: the (C, H·3/2, W) u8
-    YUV 4:2:0 pack, unpacked here.  ``"yuv420_roi"``: the pack of (C, RH,
-    RW) windows at the host ``roi_offsets`` (C, 2); the frozen model is
-    applied to the windows (``background.raw_masks_batched_fz_roi``) and
-    the frames are the windows pasted onto zeros."""
-    if ingest == "yuv420_roi":
-        image_hw = tuple(stacked_fz.bcount.shape[1:3])
-        rois = color_ops.yuv420_to_bgr_u8(upload)
-        raw = background.raw_masks_batched_fz_roi(
-            stacked_fz, rois, roi_offsets, mask_params, use_hsv,
-            image_hw=image_hw)
-        return raw, background.paste_rois(rois, roi_offsets, image_hw)
-    if ingest == "yuv420":
-        frames = color_ops.yuv420_to_bgr_u8(upload)
-    elif ingest == "bgr":
-        frames = upload
-    else:
-        raise ValueError(f"unknown ingest format {ingest!r}")
-    return background.raw_masks_batched_fz(stacked_fz, frames, mask_params,
-                                           use_hsv), frames
+def _in_flight(items, dispatch, resolve, depth):
+    """``resolve(dispatch(item))`` for each item, in input order, with
+    ``depth`` items queued ahead: item N + ``depth`` is dispatched before
+    item N is resolved, and the rest are resolved after the last
+    dispatch."""
+    q = collections.deque()
+    for item in items:
+        q.append(dispatch(item))
+        if len(q) > depth:
+            yield resolve(q.popleft())
+    while q:
+        yield resolve(q.popleft())
 
 
-def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
-               fig_thresholds, inner_thresholds, views_threshold, layout,
+def _full_step(stage, frames, btab, *, views_threshold, layout,
                ingest="bgr", roi_offsets=None):
-    """The per-frame pipeline: (YUV unpack →) HSV → compressed frozen MOG
-    apply → pre-morphology → CCL cleanup → post-morphology → blocked carve
-    (see :func:`_ingest` for ``ingest`` and ``roi_offsets``).  Returns
-    (occ, colors, overflow (C,) bool) in ``layout`` order, or with
-    ``layout="packed"`` the viewer wire (``carve_blocked.encode_wire``
-    of the blocked outputs, its overflow word set by a component-table or
-    a wire overflow)."""
-    with span("masks"):
-        raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
-                              use_hsv=use_hsv, ingest=ingest,
-                              roi_offsets=roi_offsets)
-    with span("cleanup"):
-        cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
-                                               inner_thresholds)
-    with span("finalize"):
-        masks = background.finalize_masks_batched(cleaned, mask_params)
+    """The per-frame pipeline: the mask ``stage`` (``MaskStage``, on an
+    upload in format ``ingest``) → blocked carve.  Returns (occ, colors,
+    overflow (C,) bool) in ``layout`` order, or with ``layout="packed"``
+    the viewer wire (``carve_blocked.encode_wire`` of the blocked outputs,
+    its overflow word set by a component-table or a wire overflow)."""
+    masks, ovf, frames = stage(frames, ingest, roi_offsets)
     with span("carve"):
         occ, col = carve_blocked.carve_blocked(
             masks, frames[btab.color_camera], btab,
@@ -1093,53 +1002,16 @@ def _full_step(stacked_fz, frames, btab, *, mask_params, use_hsv,
     return occ, col, ovf
 
 
-def _full_step_tables(stacked_fz, frames, tables, *, mask_params, use_hsv,
-                      fig_thresholds, inner_thresholds, views_threshold,
-                      color_camera, ingest="bgr", roi_offsets=None):
-    """The per-frame pipeline on the table path: the mask stages of
-    :func:`_full_step` (the same ``ingest`` formats), then the f64 table
-    carve.  Returns (occ (N,) bool, colors (N, 3) u8, overflow (C,) bool),
-    canonical order."""
-    with span("masks"):
-        raw, frames = _ingest(stacked_fz, frames, mask_params=mask_params,
-                              use_hsv=use_hsv, ingest=ingest,
-                              roi_offsets=roi_offsets)
-    with span("cleanup"):
-        cleaned, ovf = ccl.clean_masks_batched(raw, fig_thresholds,
-                                               inner_thresholds)
-    with span("finalize"):
-        masks = background.finalize_masks_batched(cleaned, mask_params)
-    with span("carve"):
-        occ, col = carve_ops.carve_from_tables(
-            masks, frames, tables.valid, tables.lin_idx,
-            views_threshold=views_threshold, color_camera=color_camera)
-    return occ, col, ovf
-
-
-def _full_step_frames(stacked_fz, frames, btab, *, mask_params, use_hsv,
-                      fig_thresholds, inner_thresholds, views_threshold):
+def _full_step_frames(stage, frames, btab, *, views_threshold):
     """The multi-frame pipeline on (NF, C, H, W, 3) u8 frames: the mask
-    stages over every (frame, camera) image (one cleanup, so one launch of
-    kernel K2, for all NF·C images), then the chunk's carve (kernel K4).
-    Returns (occ (NF, N) bool canonical, overflow (NF, C) bool)."""
-    NF, C, H, W = frames.shape[:4]
-    with span("masks"):
-        raw = torch.stack([
-            background.raw_masks_batched_fz(stacked_fz, fr, mask_params,
-                                            use_hsv)
-            for fr in frames])
-    with span("cleanup"):
-        cleaned, ovf = ccl.clean_masks_batched(
-            raw.reshape(NF * C, H, W), fig_thresholds * NF,
-            inner_thresholds * NF)
-    with span("finalize"):
-        masks = torch.stack([
-            background.finalize_masks_batched(m, mask_params)
-            for m in cleaned.reshape(NF, C, H, W)])
+    ``stage`` over every (frame, camera) image (one cleanup, so one launch
+    of kernel K2, for all NF·C images), then the chunk's carve (kernel
+    K4).  Returns (occ (NF, N) bool canonical, overflow (NF, C) bool)."""
+    masks, ovf, _ = stage(frames)
     with span("carve"):
         occ = carve_blocked._carve_frames_device(
             masks, btab, views_threshold=views_threshold)
-    return occ, ovf.reshape(NF, C)
+    return occ, ovf
 
 
 def _encode_surface_wire(occ, ovf, grid_shape, capacity):

@@ -5,9 +5,10 @@ Counterpart of ``vbr_tpu/parallel/pallas_sharded.py``.  Each rank runs the
 fused per-frame program of ``models.visual_hull._full_step`` on its shard:
 
   * ``data`` — the rank's frames of the batch,
-  * ``cam``  — the mask stage of the rank's cameras: HSV, the compressed
-    frozen MOG apply, pre-morphology, the cleanup (kernel K2 on the
-    rank's C/cam images) and post-morphology,
+  * ``cam``  — the mask stage of the rank's cameras
+    (``background.MaskStage``: HSV, the compressed frozen MOG apply,
+    pre-morphology, the cleanup (kernel K2 on the rank's C/cam images)
+    and post-morphology),
   * ``grid`` — the carve (kernel K1) of the rank's superblocks, which are
     split over ``("cam", "grid")`` jointly: shard k = c·grid + g.
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from vbr_tpu_torch.ops import carve_blocked, ccl, gmm
+from vbr_tpu_torch.ops import carve_blocked, gmm
 from vbr_tpu_torch.ops.carve_blocked import BlockTables
 from vbr_tpu_torch.parallel.carve_sharded import (all_gather_dim, axis_size,
                                                   local_block, rank_device)
@@ -73,7 +74,7 @@ def mask_flags_array(mask_params) -> np.ndarray:
 
 def _flag_params(flags):
     """(c, 4) flags → per-camera ``MaskParams`` carrying them (the mask
-    stage's pieces read only the flags)."""
+    stage takes its thresholds apart and reads only the flags here)."""
     return tuple(MaskParams(opening_pre=bool(f[0]), closing_pre=bool(f[1]),
                             opening_post=bool(f[2]), closing_post=bool(f[3]))
                  for f in np.asarray(flags, bool))
@@ -263,13 +264,12 @@ def sharded_production_step(mesh: DeviceMesh, *, use_hsv: bool = True,
 
     def step(frames, fz_mean, fz_thr, fz_bcount, fig_thr, inner_thr, morph,
              tables):
-        params = _flag_params(morph)
-        fz = gmm.FrozenMOGState(mean=fz_mean, thr=fz_thr, bcount=fz_bcount)
+        stage = background.MaskStage(
+            gmm.FrozenMOGState(mean=fz_mean, thr=fz_thr, bcount=fz_bcount),
+            _flag_params(morph), use_hsv, fig_thr, inner_thr)
         occ_out, col_out, ovf_out = [], [], []
         for fr in frames:
-            raw = background.raw_masks_batched_fz(fz, fr, params, use_hsv)
-            cleaned, ovf = ccl.clean_masks_batched(raw, fig_thr, inner_thr)
-            masks = background.finalize_masks_batched(cleaned, params)
+            masks, ovf, _ = stage(fr)
             masks_all = all_gather_dim(masks, mesh, "cam")  # (C, H, W)
             frames_all = all_gather_dim(fr, mesh, "cam")  # (C, H, W, 3)
             occ_b, col_b = carve_blocked.carve_blocked(

@@ -1,4 +1,4 @@
-"""Background training and the batched mask stages of the per-frame step
+"""Background training and the batched mask stage of the per-frame step
 (all cameras at once).
 
 Counterpart of ``vbr_tpu/pipelines/background.py``:
@@ -14,10 +14,16 @@ pre-morphology), its ROI form ``raw_masks_batched_fz_roi`` with
 cleanup routes) and ``BackgroundPipeline`` (per-camera models from npz
 files, background frames or the rig's ``background.avi``, and their
 masks).
+
+``MaskStage`` is the one home of the step paths' mask stage (head →
+cleanup → finalize, under their spans): the live and offline steps, the
+table step, ``VisualHull.masks``, ``validate_reduced_ingest`` and the
+sharded step all call it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Optional, Sequence
 
@@ -26,9 +32,11 @@ import torch
 
 from vbr_tpu_torch.ops import ccl, gmm, morphology
 from vbr_tpu_torch.ops import color as color_ops
+from vbr_tpu_torch.utils import profiling
 from vbr_tpu_torch.utils.config import (DEFAULT_MASK_PARAMS, MaskParams,
                                         MOGParams)
 from vbr_tpu_torch.utils.device import resolve_device
+from vbr_tpu_torch.utils.profiling import span
 
 
 def train_background_model(background_frames: np.ndarray,
@@ -270,3 +278,132 @@ def finalize_masks_batched(cleaned: torch.Tensor,
             m = morphology.closing(m, (2, 2))
         out.append(torch.where(m > 0, 255, 0).to(torch.uint8))
     return torch.stack(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskStage:
+    """The mask stage of every step path, in one place: an upload →
+    (cleaned masks (C, H, W) u8 {0, 255}, overflow (C,) bool, BGR frames
+    (C, H, W, 3) u8).  Its parts run in order, each under its recorder
+    span (``utils.profiling``):
+
+      masks     :meth:`head` — (YUV unpack →) HSV → compressed frozen MOG
+                apply → per-camera pre-morphology
+      cleanup   :meth:`cleanup` — kernel K2 (``ccl.clean_masks_batched``)
+      finalize  :meth:`finalize` — per-camera post-morphology, binarized
+
+    Every method also takes a leading frame axis (NF, ...): the head and
+    the finalize run once per frame, the cleanup once for all NF·C images;
+    the outputs keep the axis.  ``ovf[..., c]`` marks a camera whose
+    cleanup overflowed a component table: its mask is truncated, and
+    :meth:`exact` redoes it on the host."""
+
+    fz: gmm.FrozenMOGState  # (C, H, W, Ke) compressed frozen models
+    mask_params: tuple  # per-camera MaskParams (the morphology flags)
+    use_hsv: bool
+    fig_thresholds: tuple  # per-camera floats of the cleanup
+    inner_thresholds: tuple
+
+    @classmethod
+    def build(cls, states, mog_params, mask_params, device) -> "MaskStage":
+        """The stage of per-camera MOG ``states`` trained with
+        ``mog_params``, compressed and stacked on ``device``.  The batched
+        apply needs the same apply parameters on every camera
+        (``ValueError`` otherwise)."""
+        p0 = mog_params[0]
+        fields = ("bg_ratio", "use_hsv", "match_sigma")
+        for p in mog_params[1:]:
+            if any(getattr(p, f) != getattr(p0, f) for f in fields):
+                raise ValueError(
+                    "the batched mask stage needs uniform MOG apply "
+                    "params (bg_ratio, use_hsv, match_sigma) across "
+                    f"cameras; got {[(q.bg_ratio, q.use_hsv, q.match_sigma) for q in mog_params]}"
+                )
+        return cls(stack_frozen(states, p0, device), tuple(mask_params),
+                   p0.use_hsv,
+                   tuple(float(p.figure_threshold) for p in mask_params),
+                   tuple(float(p.inner_threshold) for p in mask_params))
+
+    def head(self, frames, ingest="bgr", roi_offsets=None):
+        """The stage's head on an upload in format ``ingest`` → (raw masks
+        (C, H, W) u8 with pre-morphology, BGR frames (C, H, W, 3) u8).
+
+        ``"bgr"``: the frames themselves.  ``"yuv420"``: the (C, H·3/2, W)
+        u8 YUV 4:2:0 pack, unpacked here.  ``"yuv420_roi"``: the pack of
+        (C, RH, RW) windows at the host ``roi_offsets`` (C, 2); the frozen
+        model is applied to the windows (:func:`raw_masks_batched_fz_roi`)
+        and the frames are the windows pasted onto zeros.  With a leading
+        frame axis, ``roi_offsets`` has one too."""
+        if ingest not in ("bgr", "yuv420", "yuv420_roi"):
+            raise ValueError(f"unknown ingest format {ingest!r}")
+        if frames.dim() == (5 if ingest == "bgr" else 4):  # frame axis
+            outs = [self.head(fr, ingest, None if roi_offsets is None
+                              else roi_offsets[i])
+                    for i, fr in enumerate(frames)]
+            return (torch.stack([raw for raw, _ in outs]),
+                    frames if ingest == "bgr"
+                    else torch.stack([bgr for _, bgr in outs]))
+        if ingest == "yuv420_roi":
+            image_hw = tuple(self.fz.bcount.shape[1:3])
+            rois = color_ops.yuv420_to_bgr_u8(frames)
+            raw = raw_masks_batched_fz_roi(
+                self.fz, rois, roi_offsets, self.mask_params, self.use_hsv,
+                image_hw=image_hw)
+            return raw, paste_rois(rois, roi_offsets, image_hw)
+        if ingest == "yuv420":
+            frames = color_ops.yuv420_to_bgr_u8(frames)
+        return raw_masks_batched_fz(self.fz, frames, self.mask_params,
+                                    self.use_hsv), frames
+
+    def cleanup(self, raw):
+        """(C, H, W) or (NF, C, H, W) raw masks → (cleaned, overflow (C,)
+        or (NF, C) bool): one launch of kernel K2 over every image."""
+        if raw.dim() == 3:  # no reshapes: no host ops on the live step
+            return ccl.clean_masks_batched(raw, self.fig_thresholds,
+                                           self.inner_thresholds)
+        NF = raw.shape[0]
+        cleaned, ovf = ccl.clean_masks_batched(
+            raw.flatten(0, 1), self.fig_thresholds * NF,
+            self.inner_thresholds * NF)
+        return cleaned.reshape(raw.shape), ovf.reshape(raw.shape[:2])
+
+    def finalize(self, cleaned):
+        """(C, H, W) or (NF, C, H, W) cleaned masks → post-morphology,
+        binarized, one :func:`finalize_masks_batched` per frame."""
+        if cleaned.dim() == 3:
+            return finalize_masks_batched(cleaned, self.mask_params)
+        return torch.stack([finalize_masks_batched(m, self.mask_params)
+                            for m in cleaned])
+
+    def _staged(self, frames, ingest, roi_offsets):
+        """The three parts under their spans → (raw, masks, ovf, bgr)."""
+        with span("masks"):
+            raw, bgr = self.head(frames, ingest, roi_offsets)
+        with span("cleanup"):
+            cleaned, ovf = self.cleanup(raw)
+        with span("finalize"):
+            masks = self.finalize(cleaned)
+        return raw, masks, ovf, bgr
+
+    def __call__(self, frames, ingest="bgr", roi_offsets=None):
+        """The whole stage on an upload (see :meth:`head`) → (masks, ovf,
+        bgr)."""
+        return self._staged(frames, ingest, roi_offsets)[1:]
+
+    def exact(self, frames) -> torch.Tensor:
+        """(C, H, W, 3) u8 BGR frames → the stage's masks with each camera
+        whose cleanup overflowed redone by the host cleanup
+        (``ccl.clean_mask_host``, counted as ``host_cleanups``)."""
+        raw, masks, ovf, _ = self._staged(frames, "bgr", None)
+        ovf = ovf.cpu().numpy()
+        if ovf.any():
+            raw_h = raw.cpu().numpy()
+            for c in np.flatnonzero(ovf):
+                profiling.count("host_cleanups")
+                cleaned_c = ccl.clean_mask_host(
+                    raw_h[c], self.fig_thresholds[c],
+                    self.inner_thresholds[c])
+                masks[c] = finalize_masks_batched(
+                    torch.from_numpy(cleaned_c)[None].to(masks.device),
+                    (self.mask_params[c],))[0]
+        return masks

@@ -25,14 +25,21 @@ Counterpart of ``vbr_tpu/utils/profiling.py``, with the recorder beside it:
     a non-finite float, the port's counterpart of checkify's
     ``float_checks``.
 
-The program's spans and counters (``models/visual_hull.py``):
+The program's spans and counters (``models/visual_hull.py``; the mask
+stage's three in ``pipelines/background.py``):
 
     step           one ``VisualHull.process_frame_fast`` call (root)
     offline        one ``VisualHull.process_frames_offline`` call (root)
     upload         ``VisualHull._frames``: pinning and the queued copy
-    masks          HSV, frozen MOG apply, pre-morphology
-    cleanup        ``ccl.clean_masks_batched`` (kernel K2, run tables)
-    finalize       post-morphology
+    masks          ``MaskStage.head``: (YUV unpack,) HSV, frozen MOG
+                   apply, pre-morphology
+    cleanup        ``MaskStage.cleanup``: ``ccl.clean_masks_batched``
+                   (kernel K2, run tables)
+    finalize       ``MaskStage.finalize``: post-morphology
+                   (the three opened by ``MaskStage`` wherever it runs:
+                   under ``step``, ``chunk`` and ``redo``, in a public
+                   ``VisualHull.masks`` call, ``validate_reduced_ingest``
+                   and the sharded step)
     carve          block activity and kernel K1 or K4, or the table carve
     overflow_wait  the live step's wait for the cleanup's overflow bits
     redo           a frame redone exactly (host cleanup or table path)
