@@ -257,6 +257,15 @@ of 486×644, synthetic rig and a seeded 50-mixture background model):
      16's rig mesh at 128^3 on the card bit-equal to the CPU, its ms on
      both with the triangle count, ``plot_mesh_snapshot`` read back at
      1000x1000 equal to it; each figure's ms.
+ 25. the cleanup's CUDA graph (``ccl.clean_masks_batched``, whose graph
+     every card run of phases 5-23 already replayed against the CPU):
+     ``tests/test_torch_ccl_graph.py`` in a process of its own (graph
+     against the eager body bit for bit at B = 1, 4 and 32, on the
+     benchmark's seeded rig frames with its two bursts, fresh outputs, a
+     side stream, the launch and graph counts); then the host ms of a
+     call (its enqueue, unsynchronised) and its device ms, graph and
+     eager body, on phase 5's frame (B = 4) and on the first 8 frames of
+     phase 6 (B = 32).  On the CPU: the body alone, no graph counted.
 
 A kernel's time is the device's (``timed_ms``: a spin kernel ahead of
 the start event keeps the host out of the interval; L2 is flushed by
@@ -5059,6 +5068,13 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
     print(f"  phase 24 in {reports_report['seconds']:.1f} s")
     del kept
 
+    # -- [25] the cleanup's CUDA graph ---------------------------------------
+    print("[25] the cleanup's CUDA graph: graph against eager body, host and "
+          "device ms at B = 4 and 32", flush=True)
+    cleanup_graph = cleanup_graph_phase(torch, dev, model,
+                                        [frame0] + seq[:OFFLINE_NF - 1])
+    print(f"  phase 25 in {cleanup_graph['seconds']:.1f} s")
+
     def row(k, name, replaces, err, ms, plain_ms, bound_ms, bound_by, n,
             prof=None, prof_name="", **more):
         """``profiler_ms``: the ms per launch that profile ``prof`` gives
@@ -5120,7 +5136,88 @@ def run(device, image_hw=(486, 644), grid=None, focal=490.0,
         "viewer_render": viewer_render,
         "cli": cli_report,
         "reports": reports_report,
+        "cleanup_graph": cleanup_graph,
     }
+
+
+def host_ms(fn, torch, reps=50):
+    """Mean host ms of ``reps`` calls of ``fn`` without a synchronise: the
+    enqueue alone while the device keeps up, after one call and a
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def cleanup_graph_phase(torch, dev, model, frames):
+    """Phase 25 (see the module docstring) on the stage of ``model`` and
+    the BGR ``frames`` (one for B = 4, all for B = 4 · len(frames)).
+    Returns its report."""
+    from vbr_tpu_torch.ops import ccl
+    from vbr_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    stage = model._stage
+    raws = [stage.head(torch.from_numpy(f).to(dev))[0] for f in frames]
+    shapes = {4: (raws[0], stage.fig_thresholds, stage.inner_thresholds),
+              4 * len(raws): (torch.cat(raws),
+                              stage.fig_thresholds * len(raws),
+                              stage.inner_thresholds * len(raws))}
+    report = {"seconds": 0.0}
+
+    def graph_counts():
+        c = profiling.counters()
+        return (c.get("cleanup_graph_captures", 0),
+                c.get("cleanup_graph_replays", 0))
+
+    if dev.type != "cuda":
+        before = graph_counts()
+        for B, (raw, fig, inner) in shapes.items():
+            got = ccl.clean_masks_batched(raw, fig, inner)
+            want = ccl._clean_masks_eager(raw, fig, inner, 512, 128, 64, 64)
+            expect(all(torch.equal(a, b) for a, b in zip(got, want))
+                   and graph_counts() == before,
+                   f"B = {B} on the CPU: the eager body, no graph captured "
+                   "or replayed")
+        report["seconds"] = time.perf_counter() - t_phase
+        return report
+
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_ccl_graph.py"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=1200)
+    tail = res.stdout.strip().splitlines()[-1:] or [res.stderr[-500:]]
+    if res.returncode != 0:
+        print(res.stdout[-6000:], res.stderr[-3000:])
+    expect(res.returncode == 0 and "skipped" not in tail[0],
+           f"the card tests of the cleanup's graph: {tail[0]}")
+    report["card_tests"] = tail[0]
+    for B, (raw, fig, inner) in shapes.items():
+        def graph():
+            return ccl.clean_masks_batched(raw, fig, inner)
+
+        def eager():
+            return ccl._clean_masks_eager(raw, fig, inner, 512, 128, 64, 64)
+
+        got, want = graph(), eager()
+        expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"B = {B} on phase 5's frames: graph equals eager body")
+        row = {"host_ms_graph": host_ms(graph, torch),
+               "host_ms_eager": host_ms(eager, torch),
+               "device_ms_graph": timed_ms(graph, torch, dev),
+               "device_ms_eager": timed_ms(eager, torch, dev,
+                                           spin_cycles=SPIN_CYCLES * 100)}
+        print(f"  B = {B}: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in row.items()))
+        report[f"B{B}"] = row
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
 
 
 def profile_step(torch, step, step_ms, title, frames=4, frames_per_step=1,

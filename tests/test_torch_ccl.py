@@ -7,6 +7,9 @@ compared exactly, including where the iteration cap cuts the fixpoint
 short and where small table caps force the overflow bits.
 """
 
+import contextlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ from vbr_tpu.ops import ccl as jccl
 from vbr_tpu.ops import ccl_pallas as jcclp
 from vbr_tpu_torch.ops import ccl as tccl
 from vbr_tpu_torch.ops import ccl_label as tlab
+from vbr_tpu_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,6 +100,25 @@ def test_checkerboard_single_pixel_segments():
     np.testing.assert_array_equal(got, ref)
 
 
+def _graph_counts():
+    c = profiling.counters()
+    return (c.get("cleanup_graph_captures", 0),
+            c.get("cleanup_graph_replays", 0))
+
+
+def _eager_on_the_cpu(raw, fig, inner, **caps):
+    """``clean_masks_batched`` on a CPU tensor: its body run eagerly (the
+    same result as ``_clean_masks_eager``), no graph captured or
+    replayed."""
+    counts = _graph_counts()
+    got = tccl.clean_masks_batched(raw, fig, inner, **caps)
+    caps = dict(dict(kf=512, kb=128, k_runs=64, max_iters=64), **caps)
+    want = tccl._clean_masks_eager(raw, tuple(fig), tuple(inner), **caps)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _graph_counts() == counts and not tccl._graphs._graphs
+    return got
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_clean_masks_batched_matches(seed):
     rng = np.random.default_rng(seed)
@@ -103,8 +126,7 @@ def test_clean_masks_batched_matches(seed):
     fig, inner = (900.0, 1200.0, 600.0), (40.0, 80.0, 20.0)
     out_j, ovf_j = jccl.clean_masks_batched(jnp.asarray(raw), fig, inner,
                                             interpret=True)
-    out_t, ovf_t = tccl.clean_masks_batched(torch.from_numpy(raw), fig,
-                                            inner)
+    out_t, ovf_t = _eager_on_the_cpu(torch.from_numpy(raw), fig, inner)
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
     np.testing.assert_array_equal(ovf_t.numpy(), np.asarray(ovf_j))
     assert not ovf_t.numpy().any()
@@ -140,12 +162,72 @@ def test_clean_masks_batched_overflow_matches(case):
         fig, inner, caps = 50.0, 3.0, dict(kb=16)
     out_j, ovf_j = jccl.clean_masks_batched(
         jnp.asarray(raw[None]), (fig,), (inner,), interpret=True, **caps)
-    out_t, ovf_t = tccl.clean_masks_batched(
-        torch.from_numpy(raw[None]), (fig,), (inner,), **caps)
+    out_t, ovf_t = _eager_on_the_cpu(torch.from_numpy(raw[None]), (fig,),
+                                     (inner,), **caps)
     assert bool(ovf_t.numpy()[0]) and bool(np.asarray(ovf_j)[0])
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
     np.testing.assert_array_equal(tccl.clean_mask_host(raw, fig, inner),
                                   jccl.clean_mask_host(raw, fig, inner))
+
+
+_KEY_BASE = dict(shape=(4, 486, 644), dtype=torch.uint8,
+                 fig=(5000.0,) * 4, inner=(115.0,) * 4,
+                 caps=dict(kf=512, kb=128, k_runs=64, max_iters=64))
+
+
+def _key(shape, dtype, fig, inner, caps):
+    return tccl.graph_key(torch.empty(shape, dtype=dtype), fig, inner,
+                          **caps)
+
+
+@pytest.mark.parametrize("change", [
+    dict(shape=(32, 486, 644)), dict(shape=(1, 486, 644)),
+    dict(shape=(4, 488, 644)), dict(dtype=torch.bool),
+    dict(fig=(5000.0, 5000.0, 4999.0, 5000.0)), dict(inner=(115.0,) * 3),
+    dict(caps=dict(_KEY_BASE["caps"], kf=64)),
+    dict(caps=dict(_KEY_BASE["caps"], kb=32)),
+    dict(caps=dict(_KEY_BASE["caps"], k_runs=16)),
+    dict(caps=dict(_KEY_BASE["caps"], max_iters=4)),
+])
+def test_graph_key_separates_what_the_launches_depend_on(change):
+    """The graph's key is a pure function of the input's device, dtype,
+    shape, the thresholds and the caps: equal inputs give equal keys (ints
+    and floats of one value alike), any one change another key."""
+    base = _key(**_KEY_BASE)
+    assert base == _key(**dict(_KEY_BASE, fig=(5000,) * 4,
+                               inner=[115] * 4))
+    assert _key(**dict(_KEY_BASE, **change)) != base
+
+
+def test_graph_cache_captures_once_per_key_and_keeps_the_newest(monkeypatch):
+    """The cache (driven here by a stand-in capture, as a CPU has no CUDA
+    graph): one capture per key while it is kept, every call a replay,
+    the least recently used key dropped past ``size``."""
+    captured, replayed = [], []
+
+    class Entry:
+        def __init__(self, key):
+            self.key = key
+            self.stream = type("S", (), {"synchronize": lambda s: None})()
+
+        def replay(self, raw):
+            replayed.append(self.key)
+            return self.key
+
+    def capture(raw, body, fig, inner):
+        captured.append(raw.key)
+        return Entry(raw.key)
+
+    monkeypatch.setattr(tccl, "_capture", capture)
+    monkeypatch.setattr(tccl.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    cache = tccl._GraphCache(3)
+    for k in (0, 1, 2, 0, 3, 0, 1):  # 3 drops 1, the oldest; 1 comes back
+        raw = SimpleNamespace(key=k, device=None)
+        assert cache(k, raw, None, None, None) == k
+    assert captured == [0, 1, 2, 3, 1]
+    assert replayed == [0, 1, 2, 0, 3, 0, 1]
+    assert list(cache._graphs) == [3, 0, 1]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -9,7 +9,9 @@ Counterpart of ``vbr_tpu/ops/ccl.py``:
     bit per camera.  Where the JAX version reduces with one-hot compares
     (a TPU has no fast scatter), this one uses ``scatter_add_`` /
     ``gather`` over label space where that is the same integer sum, and
-    the compares where the tables are small.
+    the compares where the tables are small.  On a card the whole body is
+    one CUDA graph per input shape (``graph_key``), captured once and
+    replayed: its ~270 small launches cost the host one.
   * ``clean_mask_host`` — the exact host cleanup on ``scipy.ndimage``
     (8-connectivity labels, 3×3 maximum filter) in place of OpenCV; the
     fallback for a camera whose overflow bit is set.
@@ -29,15 +31,19 @@ inner_threshold, and filled otherwise.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
-from vbr_tpu_torch.ops.ccl_label import (BIG, label_components_batched_plain,
+from vbr_tpu_torch.ops.ccl_label import (BIG, K2,
+                                         label_components_batched_plain,
                                          label_components_combined)
+from vbr_tpu_torch.utils import profiling
 
 
 def _pad_to_tiles(H, W):
@@ -208,6 +214,97 @@ def _device_constants(H, W, Hp, Wp, fig_thresholds, inner_thresholds, dev):
             torch.tensor(inner_thresholds, dtype=torch.float32, device=dev))
 
 
+def graph_key(raw: torch.Tensor, fig_thresholds, inner_thresholds, *,
+              kf: int, kb: int, k_runs: int, max_iters: int) -> tuple:
+    """What every launch of :func:`clean_masks_batched`'s body depends on,
+    and so the key of its captured graph: the input's device, dtype and
+    shape, the threshold tuples and the table caps."""
+    return (raw.device, raw.dtype, tuple(raw.shape),
+            tuple(map(float, fig_thresholds)),
+            tuple(map(float, inner_thresholds)), kf, kb, k_runs, max_iters)
+
+
+class _Graph:
+    """One captured body: its static input, its static outputs and the
+    stream of its latest replay."""
+
+    def __init__(self, graph, static_in, out, overflow, keep):
+        self.graph = graph
+        self.static_in = static_in
+        self.out = out
+        self.overflow = overflow
+        self.keep = keep  # device constants the graph reads
+        self.stream = torch.cuda.current_stream(static_in.device)
+
+    def replay(self, raw):
+        """Copy ``raw`` in, replay on the current stream, return clones of
+        the outputs (the next replay overwrites the static ones).  A replay
+        on another stream than the last first waits for that stream, so two
+        replays never share the buffers on the device."""
+        stream = torch.cuda.current_stream(raw.device)
+        if stream != self.stream:
+            stream.wait_stream(self.stream)
+            self.stream = stream
+        self.static_in.copy_(raw)
+        self.graph.replay()
+        K2.launches += 1  # the graph holds one K2 launch
+        profiling.count("cleanup_graph_replays")
+        return self.out.clone(), self.overflow.clone()
+
+
+def _capture(raw, body, fig, inner):
+    """``body`` captured in a CUDA graph on a static copy of ``raw``: one
+    warm-up run on a side stream first, which fills the caches its launches
+    read (``_device_constants``, ``kernel_route``), so that no copy from the
+    host falls inside the capture.  Neither run counts as a K2 launch."""
+    launches = K2.launches
+    static_in = torch.empty_like(raw, memory_format=torch.contiguous_format)
+    static_in.copy_(raw)
+    side = torch.cuda.Stream(raw.device)
+    side.wait_stream(torch.cuda.current_stream(raw.device))
+    with torch.cuda.stream(side):
+        body(static_in)
+    torch.cuda.current_stream(raw.device).wait_stream(side)
+    H, W = raw.shape[1:]
+    keep = _device_constants(H, W, *_pad_to_tiles(H, W), fig, inner,
+                             raw.device)
+    graph = torch.cuda.CUDAGraph()
+    # other threads may go on with their own CUDA calls meanwhile
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out, overflow = body(static_in)
+    K2.launches = launches
+    profiling.count("cleanup_graph_captures")
+    return _Graph(graph, static_in, out, overflow, keep)
+
+
+class _GraphCache:
+    """The captured graphs of :func:`clean_masks_batched`, least recently
+    used first, at most ``size`` (each keeps a private memory pool).  One
+    lock covers the capture and the copy-in, replay and clones of a call,
+    so threads that share a key take turns."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._graphs = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __call__(self, key, raw, body, fig, inner):
+        with self._lock, torch.cuda.device(raw.device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = _capture(raw, body, fig, inner)
+                if len(self._graphs) > self.size:
+                    # its buffers go back to the allocator: let its last
+                    # replay finish first
+                    self._graphs.popitem(last=False)[1].stream.synchronize()
+            else:
+                self._graphs.move_to_end(key)
+            return entry.replay(raw)
+
+
+_graphs = _GraphCache(8)
+
+
 def clean_masks_batched(
     raw: torch.Tensor,  # (C, H, W) u8 {0, 255}
     fig_thresholds,
@@ -225,7 +322,32 @@ def clean_masks_batched(
     row, ``kf`` fg or ``kb`` bg components, ``k_keep`` = min(16, kf) kept
     figures, ``k_hole`` = min(64, kb) holes, ``k_touch`` = min(32, k_hole)
     touched holes); its result is then truncated and the caller must redo
-    it with :func:`clean_mask_host`."""
+    it with :func:`clean_mask_host`.
+
+    On a CUDA tensor the body (padding, K2, the run-table statistics) runs
+    as one CUDA graph, captured at the first call of each :func:`graph_key`
+    and replayed after: some 270 launches become one copy in, one replay
+    and two clones out, bit-equal to the body run eagerly.  Calls share a
+    graph under a lock, and a replay waits for the stream of the one before
+    it.  A CPU tensor, or a call made while the current stream is itself
+    being captured, runs the body eagerly.  The recorder counts
+    ``cleanup_graph_captures`` and ``cleanup_graph_replays``."""
+    fig = tuple(map(float, fig_thresholds))
+    inner = tuple(map(float, inner_thresholds))
+
+    def body(x):
+        return _clean_masks_eager(x, fig, inner, kf, kb, k_runs, max_iters)
+
+    if raw.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return body(raw)
+    key = graph_key(raw, fig, inner, kf=kf, kb=kb, k_runs=k_runs,
+                    max_iters=max_iters)
+    return _graphs(key, raw, body, fig, inner)
+
+
+def _clean_masks_eager(raw, fig, inner, kf, kb, k_runs, max_iters):
+    """The body of :func:`clean_masks_batched`, launch by launch: pad to
+    tiles, K2, the statistics, unpad to u8."""
     C, H, W = raw.shape
     dev = raw.device
     Hp, Wp = _pad_to_tiles(H, W)
@@ -235,14 +357,12 @@ def clean_masks_batched(
     comb, _ = label_components_combined(fg_p, max_iters=max_iters)
     labs_f = torch.where(fg_p, comb, BIG).reshape(C, -1)
     labs_b = torch.where(bg_p, comb, BIG).reshape(C, -1)
-    bidx, fig, inner = _device_constants(
-        H, W, Hp, Wp, tuple(map(float, fig_thresholds)),
-        tuple(map(float, inner_thresholds)), dev)
+    bidx, fig_t, inner_t = _device_constants(H, W, Hp, Wp, fig, inner, dev)
     k_keep = min(16, kf)
     k_hole = min(64, kb)
     k_touch = min(32, k_hole)
     out_p, overflow = _clean_stats(
-        labs_f, labs_b, fg_p, bg_p, fig, inner, bidx=bidx, kf=kf, kb=kb,
+        labs_f, labs_b, fg_p, bg_p, fig_t, inner_t, bidx=bidx, kf=kf, kb=kb,
         k_runs=k_runs, k_keep=k_keep, k_hole=k_hole, k_touch=k_touch,
     )
     out = torch.where(out_p[:, :H, :W], 255, 0).to(torch.uint8)

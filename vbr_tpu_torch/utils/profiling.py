@@ -34,7 +34,8 @@ stage's three in ``pipelines/background.py``):
     masks          ``MaskStage.head``: (YUV unpack,) HSV, frozen MOG
                    apply, pre-morphology
     cleanup        ``MaskStage.cleanup``: ``ccl.clean_masks_batched``
-                   (kernel K2, run tables)
+                   (kernel K2, run tables; on a card the copy in, the
+                   graph's replay and the two clones out)
     finalize       ``MaskStage.finalize``: post-morphology
                    (the three opened by ``MaskStage`` wherever it runs:
                    under ``step``, ``chunk`` and ``redo``, in a public
@@ -56,6 +57,9 @@ stage's three in ``pipelines/background.py``):
     color_voxels   voxels whose colours a chunk's gather kept (its frames
                    past the video's end and its redone frames left out)
     padded_frames  frames that padded an offline call's last chunk
+    cleanup_graph_captures  graphs of ``ccl.clean_masks_batched`` captured
+                   (one per input shape, thresholds and caps)
+    cleanup_graph_replays   calls of it served by replaying a graph
 """
 
 from __future__ import annotations
